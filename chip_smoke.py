@@ -9,27 +9,41 @@ line is printed only when every phase passed:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No CUDA device: exit non-zero at once.
-2. build: nvcc builds csrc/*.cu, g++ the reference's native library.
+2. build: nvcc builds csrc/*.cu (one process per source), g++ the port's
+   native library.
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, with exact equality. The DP runs random problems across the
-   whole envelope (query rows 1..2048 x target bases 1..2303, modes
-   global / extend_right / extend_left, with end_bonus=12 and with zdrop)
-   and the real descriptors of the slice's first read batch; the chain DP
-   runs random 512-segment candidates and the real seed-stage output of
-   that batch. Times come from CUDA events at the first batch's shapes.
+   card, with exact equality.
+   - dp: random problems across the whole envelope (query rows 1..2048 x
+     target bases 1..2303, modes global / extend_right / extend_left,
+     with end_bonus=12 and with zdrop) and the real descriptors of the
+     slice's first read batch;
+   - chain: random 512-segment candidates and the real seed-stage output
+     of that batch;
+   - poa_fwd, poa_walk: (a) real chunks of a consensus run of 16 isoforms
+     x 20 reads x about 2 kb at the first, a middle and the last round,
+     adaptive band; (b) the same chunks under the static band; (c) a
+     graph with a predecessor more than 256 rows back (one read carries a
+     320-base insertion); (d) one isoform whose queries are longer than
+     32,768 bases, with a 40-base insertion behind column 32,768: the
+     consensus must equal the native C++ engine's; and, after the slice,
+     the largest chunk module D dispatched in it.
+   Times come from CUDA events at the main path's own shapes: the first
+   read batch for dp and chain, module D's largest chunk for the POA
+   kernels. Each kernel's bound is the larger of its bytes over the
+   card's memory rate and its operations over the card's ALU rate.
 4. slice: make_dataset(n_genes=40, n_reads_per_gene=500,
-   genome_len=20_000_000, seed=0) -- 20,000 reads on a 20 Mbp genome --
-   through `mando-tpu-torch --device cuda` (APDFQ) and through
-   mandalorion_tpu's host pipeline (`mando-tpu`, a separate process that
-   never touches CUDA) on the same input. The six artifacts must be
-   byte-identical and every kernel's launch counter must be > 0.
-5. a JSON line per kernel, the nvidia-smi line, then the result line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+   genome_len=20_000_000, seed=0), 20,000 reads on a 20 Mbp genome,
+   through `mando-tpu-torch --device cuda --consensus_backend device`
+   (APDFQ: module A on its device route, module D's graph POA through the
+   POA kernels) and through the port's host route (`--chain_backend
+   native --dp_backend numpy`, native consensus) in a separate process
+   that never touches CUDA. The six artifacts must be byte-identical and
+   every kernel's launch counter must be > 0 in the device run.
+5. one JSON line with every kernel, the nvidia-smi line, then the result
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
-The dataset and the reference run are subprocesses. This process imports
-only the port (mandalorion_tpu_torch), which in turn imports
-mandalorion_tpu's JAX-free host layers (config, io, native, stage
-functions); it checks at the end that jax was never imported.
+This script imports only the port; byte identity against the JAX package
+is held by the CPU tests (tests/test_torch_*.py).
 """
 
 from __future__ import annotations
@@ -48,8 +62,12 @@ from mandalorion_tpu_torch import (AlignConfig, _build, fastx_to_dict,
                                    read_fastx)
 from mandalorion_tpu_torch.align import chain_kernel, kernels
 from mandalorion_tpu_torch.align.aligner import TorchSpliceAligner
+from mandalorion_tpu_torch.native import native_poa_consensus
 from mandalorion_tpu_torch.pipeline import cli as port_cli
+from mandalorion_tpu_torch.poa import kernels as poa
+from mandalorion_tpu_torch.poa.graph import PoaParams
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
+from mandalorion_tpu_torch.utils.simulate import make_dataset
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = dict(n_genes=40, n_reads_per_gene=500, genome_len=20_000_000,
@@ -60,6 +78,54 @@ ARTIFACTS = ("Isoforms.filtered.fasta", "Isoforms.filtered.clean.psl",
              os.path.join("tmp", "reads2isoforms.txt"))
 ROW_CLASSES = ((1, 8), (9, 32), (33, 128), (129, 512), (513, 2048))
 WIDTH_CLASSES = ((1, 127), (128, 255), (256, 511), (512, 1023), (1024, 2303))
+# the POA cases (a)/(b), (c) and (d) of the module docstring
+POA_SETS = dict(n_iso=16, n_reads=20, length=2000, err=0.03)
+POA_LONG_EDGE = dict(length=2000, insert=320, band=340)
+# `at` - 100 >= 32768: the insertion's origin column needs 16 bits
+POA_LONG_QUERY = dict(length=33_000, insert=40, at=32_900, band=340)
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of device
+# memory; 67 TFLOP/s of float32 outside the tensor cores, which counts a
+# fused multiply-add as two operations on 128 lanes an SM. The chain
+# kernel's float32 operations are rounded one by one (no FMA): half of
+# that. int32 adds, compares and selects issue on 64 lanes an SM: a
+# quarter.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12 / 2
+PEAK_I32_OPS_S = 67e12 / 4
+# Operations per unit of work, counted from each function's formulas (its
+# plain version, with every scan taken as a sequential prefix: one max a
+# cell), not from the kernel's parallel implementation. One operation =
+# one add, subtract, multiply, compare, max, select, shift or bitwise op
+# on loop-varying values; constants are folded, bounds checks that a
+# sequential loop turns into loop ranges are not counted.
+# Gotoh cell of dp_fused_plain: E (2 sub, max, ext > open) 4; substitution
+# (compare, select) 2; diagonal add 1; b = max(diag, E) 1; F from its left
+# neighbour (2 sub, max, ext > open) 4; H (E > diag, F > b, max) 3; pointer
+# byte (code select, 2 shifts, 2 ors) 5; best cell (compare, 2 selects) 3.
+DP_OPS_PER_CELL = 23
+# chain_rows_plain, one (i, j < i) pair: dq, dt 2; overlap (min, negate,
+# clamp, to float) 4; validity (5 compares, 4 ands) 9; gap (2 clamps, sub)
+# 3; |gap| to float 2; the cheaper cost branch (compare, multiply, add) 3;
+# candidate score (add, sub, multiply, sub) 4; validity select 1; first
+# max (compare, 2 selects) 3.
+CHAIN_OPS_PER_PAIR = 31
+# poa_forward_plain, one stored cell, predecessors aside: absolute column
+# 1; band mask (2 compares, or) 3; substitution 2; D1, D2 mask selects 2;
+# diagonal add 1; H pick (compare, 2 selects, twice) 6; H mask select 1;
+# two insertion tiers at 11 each (e * j, add, prefix max, is-new compare,
+# origin select, 2 sub, compare, 3 selects) 22; final mask select 1;
+# hpack (2 shifts, add, 2 ors) 5; opack (shift, or) 2; the row's first
+# max (compare, 2 selects) 3.
+POA_OPS_PER_CELL = 49
+# one predecessor's contribution to a cell: diagonal first max (compare,
+# 2 selects) 3; D1 and D2 at 8 each (2 sub, max, ext > open, pointer or,
+# compare, 2 selects) 16.
+POA_OPS_PER_PRED = 19
+# poa_walk_plain, the cheapest (diagonal) step: still-active test 5; one
+# windowed cell read (sub, 2 compares, and, select) 5; op decode 1;
+# node0 (shift, sub) 2; op compare 1; emit (j - 1, r - 1) 2; k + 1 1.
+WALK_OPS_PER_STEP = 17
 
 
 def log(msg: str) -> None:
@@ -99,6 +165,15 @@ def max_abs_err(got, want) -> int:
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
     return err
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops_s: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes and to do n_ops."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = n_ops / peak_ops_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 # ------------------------------------------------------------ kernels
@@ -207,7 +282,8 @@ def check_chain_random(rng, device) -> int:
 def check_first_batch(aligner, reads, device):
     """Both kernels against their plain versions on the first read batch's
     real inputs (module A's batch: max(batch_reads, n_reads / 3) reads),
-    timed by CUDA events. Returns per-kernel (max_err, ms, plain_ms)."""
+    timed by CUDA events. Returns per-kernel dicts of max_abs_err, ms,
+    plain_ms, bound_ms, bound_by."""
     cfg = aligner.cfg
     t0 = time.time()
     codes_all, read_off, seeded = aligner.seed_batch(reads)
@@ -255,6 +331,22 @@ def check_first_batch(aligner, reads, device):
     log(f"dp: first batch {n_dev} device problems of {len(nq)} in "
         f"{len(chunks)} chunks (max rows {int(nq[nq <= 2048].max())}), "
         f"kernel == plain; {d_ms:.3f} ms vs plain {d_plain:.3f} ms")
+    # bounds: every input read once, every output written once
+    n_seg64 = n_seg[:n_cand].astype(np.int64)
+    c_bound = bound(5 * n_cand * msb * 4 + 4 * n_cand
+                    + n_cand * (msb + 3) * 2,
+                    float((n_seg64 * (n_seg64 - 1) // 2).sum())
+                    * CHAIN_OPS_PER_PAIR, PEAK_F32_OPS_S)
+    d_bytes = d_cells = 0
+    for _idx, desc, steps in chunks:
+        c_nq, c_nt = desc[2].long(), desc[3].long()
+        # query and target bytes, 25 B of descriptors, meta + ks, buf
+        d_bytes += int((c_nq + c_nt).sum()) + len(c_nq) * (25 + 20 + steps)
+        d_cells += int((c_nq * (c_nt + 1)).sum())
+    d_bound = bound(d_bytes, d_cells * DP_OPS_PER_CELL, PEAK_I32_OPS_S)
+    log(f"bounds: chain {c_bound[0]:.6f} ms by {c_bound[1]}, dp "
+        f"{d_bound[0]:.6f} ms by {d_bound[1]} ({d_cells} cells, {d_bytes} "
+        f"bytes)")
     torch.cuda.synchronize()
     t0 = time.time()
     aligner.map_batch(reads)
@@ -265,7 +357,190 @@ def check_first_batch(aligner, reads, device):
         f"{c_ms:.1f} + C fill {fill_s * 1e3:.1f} + dp kernel {d_ms:.1f} + "
         f"C emit, uploads, checks and records "
         f"{(total_s - seed_s - fill_s) * 1e3 - c_ms - d_ms:.1f}")
-    return {"dp": (d_err, d_ms, d_plain), "chain": (c_err, c_ms, c_plain)}
+    return {"dp_fused": dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
+                             bound_ms=d_bound[0], bound_by=d_bound[1]),
+            "chain_rows": dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+                               bound_ms=c_bound[0], bound_by=c_bound[1])}
+
+
+# ---------------------------------------------------------------- POA
+
+def noisy_copy(rng, base: np.ndarray, err: float) -> np.ndarray:
+    """`base` with substitutions, 1-base insertions and deletions, each at
+    a rate of err / 3."""
+    u = rng.random(len(base))
+    sub = (u >= 2 * err / 3) & (u < err)
+    out = np.where(sub, rng.integers(0, 4, len(base)), base).astype(np.uint8)
+    ins = (u >= err / 3) & (u < 2 * err / 3)
+    pairs = np.stack([out, rng.integers(0, 4, len(base)).astype(np.uint8)],
+                     axis=1)
+    keep = np.stack([u >= err / 3, ins], axis=1)
+    return pairs[keep]
+
+
+def poa_problem_tensors(arrays, device):
+    base, preds, nn, ends, qq, ql = poa.problems_from_numpy(*arrays, device)
+    return (base, preds, nn, qq, ql), (nn, ends, ql)
+
+
+def check_poa_chunk(what, arrays, params, W, l_cap, device):
+    """Forward and walk kernels against their plain versions on one chunk:
+    whole tensors (rows past nn[b] are zero on both sides), buf[:ks] and
+    ks. Returns the measured largest differences (forward, walk); raises
+    unless both are 0."""
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
+    mats = poa.poa_forward(*fwd_in, params, W)
+    buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
+    torch.cuda.synchronize()
+    want = poa.poa_forward_plain(*fwd_in, params, W)
+    e_fwd = max_abs_err(mats, want)
+    want_buf, want_ks = poa.poa_walk_plain(nn, ends, ql, want, l_cap)
+    live = torch.arange(buf.shape[1], device=device)[None, :, None] \
+        < want_ks[:, None, None]
+    e_walk = max_abs_err([ks, buf * live], [want_ks, want_buf * live])
+    if e_fwd or e_walk:
+        raise AssertionError(f"poa kernels != plain on {what}: forward max "
+                             f"err {e_fwd}, walk max err {e_walk}")
+    log(f"poa: {what}: {len(nn)} problems, rows <= {int(nn.max())}, W {W}, "
+        f"steps <= {int(ks.max())}: forward and walk kernels == plain")
+    return e_fwd, e_walk
+
+
+def capture_consensus(sets, params, device, rounds):
+    """poa_consensus_batch on the card, keeping the chunks of `rounds`:
+    (consensi, [(round, W, l_cap, arrays)])."""
+    poa.OBSERVER = obs = poa.RunObserver(keep_rounds=rounds)
+    try:
+        consensi = poa.poa_consensus_batch(sets, params, device)
+    finally:
+        poa.OBSERVER = None
+    return consensi, obs.kept
+
+
+def check_poa_cases(rng, device):
+    """Cases (a) to (d) of the module docstring. Returns the measured
+    largest differences (forward, walk) over every chunk compared."""
+    errs = []
+    cfg = POA_SETS
+    sets = []
+    for _ in range(cfg["n_iso"]):
+        true = rng.integers(0, 4, cfg["length"] + int(rng.integers(-200, 200))
+                            ).astype(np.uint8)
+        sets.append([noisy_copy(rng, true, cfg["err"])
+                     for _ in range(cfg["n_reads"])])
+    band = max(16, 10 + cfg["length"] // 100)
+    adaptive = PoaParams(band=band, adaptive=True)
+    last = cfg["n_reads"] - 1
+    consensi, kept = capture_consensus(sets, adaptive, device,
+                                       {1, last // 2, last})
+    for reads, got in zip(sets, consensi):
+        if got.tolist() != native_poa_consensus(reads, adaptive).tolist():
+            raise AssertionError("poa consensus on the card != native engine")
+    log(f"poa: {cfg['n_iso']} isoforms x {cfg['n_reads']} reads x about "
+        f"{cfg['length']} bases: consensi on the card == native engine")
+    static = PoaParams(band=band, adaptive=False)
+    for k, W, l_cap, arrays in kept:
+        errs.append(check_poa_chunk(f"(a) round {k}, adaptive band", arrays,
+                                    adaptive, W, l_cap, device))
+        nn, ql = arrays[2], arrays[5]
+        w_static = max(poa._item_width(int(n), int(q), band, l_cap, False)
+                       for n, q in zip(nn, ql))
+        errs.append(check_poa_chunk(f"(b) round {k}, static band", arrays,
+                                    static, w_static, l_cap, device))
+
+    cfg = POA_LONG_EDGE
+    true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
+    half = cfg["length"] // 2
+    with_ins = np.concatenate([true[:half],
+                               rng.integers(0, 4, cfg["insert"]).astype(
+                                   np.uint8), true[half:]])
+    reads = [true, with_ins, noisy_copy(rng, true, 0.02),
+             noisy_copy(rng, with_ins, 0.02), noisy_copy(rng, true, 0.02)]
+    params = PoaParams(band=cfg["band"], adaptive=True)
+    consensi, kept = capture_consensus([reads], params, device,
+                                       range(1, len(reads)))
+    if consensi[0].tolist() != native_poa_consensus(reads, params).tolist():
+        raise AssertionError("(c) consensus on the card != native engine")
+    far = [(poa.max_back_distance(a[1][0], int(a[2][0])), k, W, l_cap, a)
+           for k, W, l_cap, a in kept]
+    back, k, W, l_cap, arrays = max(far, key=lambda f: f[0])
+    if back <= 256:
+        raise AssertionError(f"(c) back-distance {back} <= 256")
+    errs.append(check_poa_chunk(f"(c) round {k}, predecessor {back} rows "
+                                f"back", arrays, params, W, l_cap, device))
+
+    cfg = POA_LONG_QUERY
+    true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
+    with_ins = np.concatenate([true[:cfg["at"]],
+                               rng.integers(0, 4, cfg["insert"]).astype(
+                                   np.uint8), true[cfg["at"]:]])
+    third = with_ins.copy()
+    hit = rng.random(len(third)) < 0.005
+    third[hit] = rng.integers(0, 4, int(hit.sum()))
+    reads = [true, with_ins, third]
+    params = PoaParams(band=cfg["band"], adaptive=True)
+    t0 = time.time()
+    consensi, kept = capture_consensus([reads], params, device, {1})
+    card_s = time.time() - t0
+    if consensi[0].tolist() != native_poa_consensus(reads, params).tolist():
+        raise AssertionError("(d) consensus on the card != native engine")
+    # round 1's walk must cross a tier-2 insertion whose origin column is
+    # >= 32768: a run of `insert` inserted bases ending behind that column
+    _k, W, l_cap, arrays = kept[0]
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
+    buf, ks = poa.poa_walk(nn, ends, ql,
+                           poa.poa_forward(*fwd_in, params, W), l_cap)
+    steps = buf[0, :int(ks[0])].cpu().numpy()
+    inserted = steps[steps[:, 1] < 0, 0]
+    if len(inserted) < cfg["insert"] or inserted.min() < cfg["at"] - 100:
+        raise AssertionError(f"(d) the walk found no {cfg['insert']}-base "
+                             f"insertion near column {cfg['at']}: "
+                             f"{inserted[:50]}")
+    log(f"poa: (d) queries of {len(with_ins)} bases, {len(inserted)} bases "
+        f"inserted from column {int(inserted.min())} on (a tier-2 origin), "
+        f"W {W}: consensus on the card == native engine ({card_s:.1f}s)")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_poa_main_path(largest, device) -> dict:
+    """The largest chunk module D dispatched in the slice run: kernels
+    against plain, timed by CUDA events, with their bounds."""
+    arrays, W, l_cap, params = largest
+    e_fwd, e_walk = check_poa_chunk("module D's largest chunk", arrays,
+                                    params, W, l_cap, device)
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
+    mats = poa.poa_forward(*fwd_in, params, W)
+    _buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
+    f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in, params, W), 3)
+    f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in, params, W), 1)
+    w_ms = cuda_ms(lambda: poa.poa_walk(nn, ends, ql, mats, l_cap), 3)
+    w_plain = cuda_ms(lambda: poa.poa_walk_plain(nn, ends, ql, mats, l_cap),
+                      1)
+    base, preds, nn_a, _ends, qq, _ql = arrays
+    rows = nn_a.astype(np.int64)
+    cells = int(((rows + 1) * W).sum())
+    n_preds = int(sum((preds[b, :n] >= 0).sum() for b, n in enumerate(rows)))
+    # inputs read once (the rows of base and preds up to nn, the queries);
+    # outputs written once: four matrices, offs and endcol, rows 0..nn
+    f_bytes = int((rows * (1 + preds.shape[2]) * 4).sum()) + qq.size * 4 \
+        + cells * 16 + int(((rows + 1) * 8).sum())
+    f_bound = bound(f_bytes, cells * POA_OPS_PER_CELL
+                    + n_preds * W * POA_OPS_PER_PRED, PEAK_I32_OPS_S)
+    n_steps = int(ks.sum())
+    # per step at most two 4-byte cells and a window offset read, 8 bytes
+    # written; the end-rank scan reads endcol and the end flags up to nn
+    w_bound = bound(n_steps * 20 + int((rows * 5).sum()),
+                    n_steps * WALK_OPS_PER_STEP, PEAK_I32_OPS_S)
+    log(f"poa: module D's largest chunk: {len(rows)} problems, n_cap "
+        f"{base.shape[1]}, W {W}, {cells} cells, {n_preds} predecessors, "
+        f"{n_steps} walk steps; forward {f_ms:.3f} ms vs plain "
+        f"{f_plain:.3f} ms, bound {f_bound[0]:.6f} ms by {f_bound[1]}; walk "
+        f"{w_ms:.3f} ms vs plain {w_plain:.3f} ms, bound {w_bound[0]:.6f} ms "
+        f"by {w_bound[1]}")
+    return {"poa_fwd": dict(max_abs_err=e_fwd, ms=f_ms, plain_ms=f_plain,
+                            bound_ms=f_bound[0], bound_by=f_bound[1]),
+            "poa_walk": dict(max_abs_err=e_walk, ms=w_ms, plain_ms=w_plain,
+                             bound_ms=w_bound[0], bound_by=w_bound[1])}
 
 
 # -------------------------------------------------------------- slice
@@ -286,6 +561,19 @@ def stage_seconds(out_dir: str) -> dict:
         return {k: float(v) for k, v in
                 (line.rstrip("\n").split("\t")[:2] for line in fh
                  if line.strip() and not line.startswith("stage"))}
+
+
+KERNELS = (
+    ("dp_fused", "mandalorion_tpu_torch/csrc/dp.cu",
+     "mandalorion_tpu/align/kernels.py:186", kernels.DP_LAUNCHES),
+    ("chain_rows", "mandalorion_tpu_torch/csrc/chain.cu",
+     "mandalorion_tpu/align/chain_kernel.py:30",
+     chain_kernel.CHAIN_LAUNCHES),
+    ("poa_fwd", "mandalorion_tpu_torch/csrc/poa_fwd.cu",
+     "mandalorion_tpu/poa/pallas_kernel.py:104", poa.POA_FWD_LAUNCHES),
+    ("poa_walk", "mandalorion_tpu_torch/csrc/poa_walk.cu",
+     "mandalorion_tpu/poa/kernels.py:308", poa.POA_WALK_LAUNCHES),
+)
 
 
 def main() -> None:
@@ -310,26 +598,29 @@ def main() -> None:
     log(f"build: native library {time.time() - t0:.1f}s")
 
     rng = np.random.default_rng(0)
-    errs = {"dp": check_dp_random(rng, device),
-            "chain": check_chain_random(rng, device)}
+    errs = {"dp_fused": check_dp_random(rng, device),
+            "chain_rows": check_chain_random(rng, device)}
+    t0 = time.time()
+    errs["poa_fwd"], errs["poa_walk"] = check_poa_cases(rng, device)
+    log(f"poa: cases (a)-(d) {time.time() - t0:.1f}s")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        n_reads = int(run([
-            sys.executable, "-c",
-            "import sys; from mandalorion_tpu.utils.simulate import "
-            f"make_dataset; print(make_dataset(sys.argv[1], **{DATASET!r}))",
-            tmp]).split()[-1])
+        n_reads = make_dataset(tmp, **DATASET)
         log(f"dataset: {n_reads} reads, {DATASET['genome_len']} bp genome, "
             f"{DATASET['n_genes']} genes ({time.time() - t0:.1f}s)")
         inputs = ["-G", os.path.join(tmp, "genome.fasta"),
                   "-g", os.path.join(tmp, "ann.gtf"),
                   "-f", os.path.join(tmp, "reads.fasta")]
 
+        # the comparison run: the port's host route, in a process of its
+        # own that never initialises CUDA
         ref_dir = os.path.join(tmp, "host")
         t0 = time.time()
-        run([sys.executable, "-m", "mandalorion_tpu.pipeline.cli",
-             "-p", ref_dir, *inputs])
+        run([sys.executable, "-m", "mandalorion_tpu_torch.pipeline.cli",
+             "-p", ref_dir, *inputs, "--chain_backend", "native",
+             "--dp_backend", "numpy", "--consensus_backend", "native",
+             "--device", "cpu"])
         host_s = time.time() - t0
 
         reads = [(nm, sq) for nm, sq, _q in
@@ -338,22 +629,23 @@ def main() -> None:
             fastx_to_dict(os.path.join(tmp, "genome.fasta")),
             device=device)
         batch = max(aligner.cfg.batch_reads, -(-len(reads) // 3))
-        first = check_first_batch(aligner, reads[:batch], device)
-        for k in errs:
-            errs[k] = max(errs[k], first[k][0])
+        measured = check_first_batch(aligner, reads[:batch], device)
         del aligner, reads
 
         port_dir = os.path.join(tmp, "port")
-        counters = (kernels.DP_LAUNCHES, chain_kernel.CHAIN_LAUNCHES)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.count = 0
+        poa.OBSERVER = stats = poa.RunObserver(time_kernels=True,
+                                               keep_largest=True)
+        for *_names, counter in KERNELS:
+            counter.count = 0
         t0 = time.time()
-        port_cli.main(["-p", port_dir, *inputs, "--device", "cuda"])
+        port_cli.main(["-p", port_dir, *inputs, "--device", "cuda",
+                       "--consensus_backend", "device"])
         torch.cuda.synchronize()
         port_s = time.time() - t0
-        launches = {c.name: c.count for c in counters}
+        launches = {name: counter.count for name, *_r, counter in KERNELS}
+        poa.OBSERVER = None
         peak = torch.cuda.max_memory_allocated()
 
         ref, got = artifact_bytes(ref_dir), artifact_bytes(port_dir)
@@ -368,25 +660,38 @@ def main() -> None:
         log(f"slice: {len(ARTIFACTS)} artifacts byte-identical; launches "
             f"{launches}; peak device memory {peak} bytes")
         log(f"slice: APDFQ stages (index build included) "
-            f"{n_reads / sum(port_t.values()):.1f} reads/s with module A on "
-            f"the card vs {n_reads / sum(ref_t.values()):.1f} host; module A"
-            f" {n_reads / port_t['A_alignment']:.1f} vs "
+            f"{n_reads / sum(port_t.values()):.1f} reads/s with modules A "
+            f"and D on the card vs {n_reads / sum(ref_t.values()):.1f} on "
+            f"the host route; module A "
+            f"{n_reads / port_t['A_alignment']:.1f} vs "
             f"{n_reads / ref_t['A_alignment']:.1f} reads/s; wall "
             f"{port_s:.1f}s vs {host_s:.1f}s (host: a fresh interpreter)")
         log("slice: stage seconds, card | host: " + ", ".join(
             f"{k} {port_t[k]:.2f} | {ref_t[k]:.2f}" for k in ref_t))
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    names = {"dp": ("dp_fused", "mandalorion_tpu_torch/csrc/dp.cu",
-                    "mandalorion_tpu/align/kernels.py:186"),
-             "chain": ("chain_rows", "mandalorion_tpu_torch/csrc/chain.cu",
-                       "mandalorion_tpu/align/chain_kernel.py:30")}
+        kernel_ms = stats.kernel_ms()
+        classes = sorted({(c[1], c[2]) for c in stats.chunks})
+        sizes = [c[0] for c in stats.chunks]
+        log(f"module D: {stats.rounds} rounds, {len(stats.chunks)} chunks, "
+            f"problems a chunk {min(sizes)}..{max(sizes)} (mean "
+            f"{sum(sizes) / len(sizes):.1f}), (n_cap, W) classes {classes}; "
+            f"forward kernel {kernel_ms['poa_fwd']:.1f} ms and walk kernel "
+            f"{kernel_ms['poa_walk']:.1f} ms by CUDA events summed over the "
+            f"run, host fill_arrays {stats.fill_s * 1e3:.1f} ms, "
+            f"apply_steps {stats.apply_s * 1e3:.1f} ms; D_define "
+            f"{port_t['D_define']:.2f} s | {ref_t['D_define']:.2f} s")
+        measured.update(check_poa_main_path(stats.largest, device))
+
+    for banned in ("jax", "mandalorion_tpu"):
+        if banned in sys.modules:
+            raise AssertionError(f"{banned} was imported")
+    for name in errs:
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
+                                            errs[name])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[k],
-         "ms": first[k][1], "plain_ms": first[k][2]}
-        for k, (name, src, rep) in names.items()]}))
+         "launches": launches[name], **measured[name], "library_ms": None}
+        for name, src, rep, _counter in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,23 +1,26 @@
-"""mandalorion_tpu_torch — mandalorion_tpu's device routes on PyTorch and
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""mandalorion_tpu_torch: the mandalorion_tpu isoform pipeline on PyTorch
+and hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package `mandalorion_tpu` is the reference. This package mirrors
-its module names and imports its JAX-free layers (config, io, core,
-native, the host aligner, the stage functions) instead of copying them;
-it never imports jax. Ported so far: module A's staged device route.
+its module names and stands alone: it keeps its own copy of the host
+layers (config, io, native C++ library, core, utils, the host aligner,
+the stage functions) and imports neither jax nor mandalorion_tpu. Ported
+device routes so far: module A's staged alignment route and module D's
+graph-POA consensus.
 
-- ``runtime``   — explicit device resolution, fork safety, build directory
-- ``_build``    — nvcc build + ctypes loader for ``csrc/*.cu``
-- ``align``     — chain DP and affine-gap DP kernels, TorchSpliceAligner
-- ``pipeline``  — ``run_pipeline`` and the ``mando-tpu-torch`` CLI
-
-The config dataclasses and the FASTA/FASTQ readers the port's entry
-points take are re-exported here, so a caller of the port needs no
-import of the reference package.
+- ``runtime``   explicit device resolution, fork safety, build directory
+- ``_build``    nvcc build + ctypes loader for ``csrc/*.cu``
+- ``native``    g++ build + ctypes loader for the C++ host library
+- ``align``     chain DP and affine-gap DP kernels, the aligners
+- ``poa``       graph-POA forward and walk kernels, consensus calling
+- ``core``, ``io``, ``utils``  host layers
+- ``pipeline``  ``run_pipeline`` and the ``mando-tpu-torch`` CLI
 """
 
-from mandalorion_tpu.config import AlignConfig, PipelineConfig
-from mandalorion_tpu.io.fastx import fastx_to_dict, read_fastx
+from mandalorion_tpu_torch.config import (
+    AlignConfig, PipelineConfig, PoaConfig)
+from mandalorion_tpu_torch.io.fastx import fastx_to_dict, read_fastx
 
-__all__ = ["AlignConfig", "PipelineConfig", "fastx_to_dict", "read_fastx"]
+__all__ = ["AlignConfig", "PipelineConfig", "PoaConfig", "fastx_to_dict",
+           "read_fastx"]
 __version__ = "0.1.0"

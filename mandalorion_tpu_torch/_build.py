@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
+nvcc compiles every source (one nvcc process per source, all started
+together) and links them into one shared library with a plain C
 interface, loaded through ctypes. The library is built on first use,
 named by a hash of the sources and flags, into runtime.kernel_build_dir(),
 so an edited kernel rebuilds and an unchanged one loads at once. Each C
@@ -26,8 +27,7 @@ CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 # and XLA's (no a*b+c contraction); -Xptxas -v reports registers, shared
 # memory and spills per kernel into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -41,6 +41,13 @@ _SIGNATURES = {
     # qs, qe, ts, te, cov, n_seg, rows, n, msb, match, min_intron,
     # max_intron, intron_penalty, indel_open, indel_scale, stream
     "mando_chain_rows": [_P] * 7 + [_I64] + [_I32] * 4 + [_F32] * 3 + [_P],
+    # base, preds, nn, qq, ql, hpack, opack, d1p, d2p, offs, endcol, state,
+    # bestc, n, n_cap, p_cap, l_cap, W, match, mismatch, gap_open,
+    # gap_extend, gap_open2, gap_extend2, band, adaptive, stream
+    "mando_poa_fwd": [_P] * 13 + [_I64] + [_I32] * 12 + [_P],
+    # nn, ends, ql, hpack, opack, d1p, d2p, offs, endcol, buf, ks, n, n_cap,
+    # W, max_steps, stream
+    "mando_poa_walk": [_P] * 11 + [_I64] + [_I32] * 3 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -75,25 +82,57 @@ def library_path() -> str:
                         f"libmando_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _compile(so: str) -> None:
+    """Build `so` from sources(): the objects in parallel, then the link.
+    Temporaries carry the pid and the result is renamed into place, since
+    concurrent processes may race to build the same library."""
+    global BUILD_LOG
+    nvcc = _nvcc()
+    tag = f"{so}.{os.getpid()}"
+    t0 = time.time()
+    objects = [f"{tag}.{os.path.basename(src)}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources(), objects)]
+    logs, failed = [], []
+    try:
+        for src, proc in zip(sources(), procs):
+            out, err = proc.communicate(timeout=900)
+            logs.append(f"# {os.path.basename(src)}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{err}")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", f"{tag}.tmp", *objects],
+                capture_output=True, text=True, timeout=900)
+            logs.append(f"# link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+    BUILD_LOG = f"# nvcc {time.time() - t0:.1f}s\n" + "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(f"{tag}.tmp", so)
+
+
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, compiled first if this source hash has no
     build yet. Raises when nvcc is missing or the build fails."""
-    global _LIB, BUILD_LOG
+    global _LIB
     if _LIB is not None:
         return _LIB
     so = library_path()
     if not os.path.exists(so):
-        # pid-unique temp + atomic rename: concurrent processes may race
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.time()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                              capture_output=True, text=True, timeout=900)
-        BUILD_LOG = (f"# nvcc {time.time() - t0:.1f}s\n"
-                     f"{proc.stdout}{proc.stderr}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)
+        _compile(so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,46 +1,367 @@
-"""Module A's device route on PyTorch (counterpart of
-mandalorion_tpu/align/aligner.py's `_map_batch_device_staged`).
+"""Splice-aware read-to-genome aligner (minimap2 `-ax splice:hq --cs=long
+-uf -G 400k --secondary=no` replacement, `Mando.py:316-319`): the host
+class `SpliceAligner` and its device route `TorchSpliceAligner`.
 
-Per batch:
+Counterpart of mandalorion_tpu/align/aligner.py. Per read the host class
+runs seed -> chain -> gap fill -> DP -> extended-PSL emission in the
+native C++ library. `TorchSpliceAligner.map_batch` is the staged device
+route (the reference's `_map_batch_device_staged`), per batch:
 
     C seed (native_stage_seed_batch) -> chain DP (chain_kernel.chain_rows)
       -> C fill (native_stage_fill_batch)
       -> affine-gap DP + traceback (kernels.dp_fused)
       -> C emit (native_stage_emit_batch)
 
-The three native C stages are the reference's, unchanged; the two device
-stages are this package's. The genome index is the reference's
-`GenomeIndex` (shared numpy arrays); its uint8 sequence codes are uploaded
-to the device once and stay there.
+The index's uint8 sequence codes are uploaded to the device once and stay
+there. Both classes give byte-identical records.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mandalorion_tpu.align.aligner import SpliceAligner, _Pending, cfg_min_len
-from mandalorion_tpu.align.encode import encode
-from mandalorion_tpu.config import AlignConfig
-from mandalorion_tpu.io.psl import PslRecord
-from mandalorion_tpu.native import (
-    native_stage_emit_batch, native_stage_fill_batch, native_stage_seed_batch)
+from mandalorion_tpu_torch.align.chain import (
+    Segment, chain_segments, collapse_anchors)
 from mandalorion_tpu_torch.align.chain_kernel import chain_batch_rows
+from mandalorion_tpu_torch.align.encode import (
+    encode, minimizers, revcomp_codes)
+from mandalorion_tpu_torch.align.extend import (
+    DpProblem, DpResult, solve_dp_native, splice_fill)
+from mandalorion_tpu_torch.align.index import cached_index, frequency_occ_cap
 from mandalorion_tpu_torch.align.kernels import solve_dp_fused
-from mandalorion_tpu_torch.runtime import require_native, resolve_device
+from mandalorion_tpu_torch.config import AlignConfig
+from mandalorion_tpu_torch.io.psl import PslRecord
+from mandalorion_tpu_torch.native import (
+    native_align_read, native_align_read_runs, native_emit_psl,
+    native_stage_emit_batch, native_stage_fill_batch,
+    native_stage_seed_batch)
+from mandalorion_tpu_torch.runtime import resolve_device
 
 
-def _port_cfg(cfg: AlignConfig) -> AlignConfig:
-    """The config the base class is built with. Backend strings other than
-    the reference's device values keep SpliceAligner.__init__ from
-    importing jax; its host methods then use the native solver."""
-    if cfg.index_backend == "sharded":
-        raise NotImplementedError("index_backend='sharded' is not yet "
-                                  "ported to mandalorion_tpu_torch")
-    return dataclasses.replace(cfg, dp_backend="torch", chain_backend="torch")
+@dataclass
+class _Pending:
+    """A read alignment awaiting batched DP results."""
+
+    name: str
+    seq: str
+    strand: str
+    q_codes: np.ndarray            # aligned-orientation query codes
+    chrom_idx: int
+    ops: List[Tuple[str, int, int, int]]  # (kind, q0, t0, length) + DP slots
+    dp_slots: List[int]            # indices into the batch problem list
+
+
+class SpliceAligner:
+    """Genome-indexed splice aligner on the host (native C++ seeding,
+    chaining and DP). Thread the same instance through batches."""
+
+    def __init__(self, genome: Dict[str, str],
+                 cfg: Optional[AlignConfig] = None):
+        self.cfg = cfg or AlignConfig()
+        if self.cfg.index_backend == "sharded":
+            raise NotImplementedError("index_backend='sharded' is not yet "
+                                      "ported to mandalorion_tpu_torch")
+        self.index = cached_index(genome, self.cfg.kmer, self.cfg.window,
+                                  self.cfg.index_cache)
+        if self.index.bucket_lo is None:
+            raise ValueError("the genome index has no bucket table "
+                             "(bucket_lo): rebuild the index cache")
+        # minimap2 -f analogue: raise the seed occurrence cap to the
+        # index's top-frequency quantile so repeat/tandem regions seed
+        self.max_occ = frequency_occ_cap(self.index, self.cfg.occ_frac,
+                                         self.cfg.max_occ)
+
+    def host_twin(self) -> "SpliceAligner":
+        """An aligner sharing this instance's index that computes on the
+        host. For tiny batches (module F realigns a handful of isoform
+        consensi) a device round trip per dispatch dominates the work
+        itself; the routes are byte-identical, so this changes no
+        output. No index rebuild."""
+        return self
+
+    # ------------------------------------------------------------- filling
+
+    def _fill(self, name: str, seq: str, strand: str, q_codes: np.ndarray,
+              chain: List[Segment], chrom_idx: int,
+              problems: List[DpProblem]) -> Optional[_Pending]:
+        cfg = self.cfg
+        g = self.index.seq_codes
+        ops: List[Tuple[str, int, int, int]] = []
+        dp_slots: List[int] = []
+
+        def add_dp(q0: int, t0: int, q_arr: np.ndarray, t_arr: np.ndarray,
+                   mode: str) -> None:
+            dp_slots.append(len(problems))
+            problems.append(DpProblem(q_arr, t_arr, mode))
+            ops.append(("DP", q0, t0, len(dp_slots) - 1))
+
+        chrom_off = int(self.index.chrom_offsets[chrom_idx])
+        chrom_end = chrom_off + int(self.index.chrom_sizes[chrom_idx])
+        first, last = chain[0], chain[-1]
+        # left end extension (reversed extend problem); never cross the
+        # chromosome boundary
+        lq = min(first.q_start, cfg.max_end_extend)
+        if lq > 0:
+            lt = min(first.t_start - chrom_off, lq + cfg.band_width)
+            add_dp(first.q_start, first.t_start,
+                   q_codes[first.q_start - lq:first.q_start][::-1].copy(),
+                   g[first.t_start - lt:first.t_start][::-1].copy(),
+                   "extend_left")
+
+        # Give every intron gap slack: repeated bases around a junction let
+        # anchors run past the true splice site, which would pin the intron
+        # at a motif-blind position. Pull both flanks back so the
+        # splice-point search can slide the junction onto the motif.
+        slack = cfg.splice_slack
+        chain = [Segment(s.q_start, s.q_end, s.t_start, s.t_end)
+                 for s in chain]
+        for a, b in zip(chain, chain[1:]):
+            dq = b.q_start - a.q_end
+            dt = b.t_start - a.t_end
+            if dt - dq >= cfg.min_intron and dq >= 0:
+                s_back = min(slack, (a.length - 1) // 2)
+                s_fwd = min(slack, (b.length - 1) // 2)
+                a.q_end -= s_back
+                a.t_end -= s_back
+                b.q_start += s_fwd
+                b.t_start += s_fwd
+
+        prev: Optional[Segment] = None
+        for seg in chain:
+            if prev is not None:
+                dq = seg.q_start - prev.q_end
+                dt = seg.t_start - prev.t_end
+                if dt - dq >= cfg.min_intron and dq >= 0:
+                    q = q_codes[prev.q_end:seg.q_start]
+                    splits = np.arange(dq + 1)
+                    donor = np.stack([
+                        g[prev.t_end + splits],
+                        g[prev.t_end + splits + 1]], axis=1)
+                    acc_base = seg.t_start - (dq - splits)
+                    acceptor = np.stack([
+                        g[acc_base - 2], g[acc_base - 1]], axis=1)
+                    s, _m = splice_fill(
+                        q, g[prev.t_end:prev.t_end + dq] if dq else
+                        np.zeros(0, np.uint8),
+                        g[seg.t_start - dq:seg.t_start] if dq else
+                        np.zeros(0, np.uint8),
+                        donor, acceptor, strand, cfg.noncanonical_penalty)
+                    if s > 0:
+                        ops.append(("M", prev.q_end, prev.t_end, s))
+                    ops.append(("N", prev.q_end + s, prev.t_end + s,
+                                dt - dq))
+                    if dq - s > 0:
+                        ops.append(("M", prev.q_end + s,
+                                    seg.t_start - (dq - s), dq - s))
+                elif dq == dt:
+                    if dq > 0:
+                        ops.append(("M", prev.q_end, prev.t_end, dq))
+                elif dq == 0:
+                    ops.append(("D", prev.q_end, prev.t_end, dt))
+                elif dt == 0:
+                    ops.append(("I", prev.q_end, prev.t_end, dq))
+                else:
+                    if dq * dt <= 4_000_000:
+                        add_dp(prev.q_end, prev.t_end,
+                               q_codes[prev.q_end:seg.q_start].copy(),
+                               g[prev.t_end:seg.t_start].copy(), "global")
+                    else:  # degenerate huge gap: crude I+D fill
+                        ops.append(("I", prev.q_end, prev.t_end, dq))
+                        ops.append(("D", seg.q_start, prev.t_end, dt))
+            ops.append(("M", seg.q_start, seg.t_start, seg.length))
+            prev = seg
+
+        rq = min(len(q_codes) - last.q_end, cfg.max_end_extend)
+        if rq > 0:
+            rt = min(chrom_end - last.t_end, rq + cfg.band_width)
+            add_dp(last.q_end, last.t_end,
+                   q_codes[last.q_end:last.q_end + rq].copy(),
+                   g[last.t_end:last.t_end + rt].copy(), "extend_right")
+        return _Pending(name, seq, strand, q_codes, chrom_idx, ops, dp_slots)
+
+    # ------------------------------------------------------------ emission
+
+    def _emit(self, pend: _Pending, results: List[DpResult],
+              modes: List[str]) -> Optional[PslRecord]:
+        """Stitch structural + DP ops into runs and build the PSL record."""
+        runs = self._build_runs(pend, results, modes)
+        return self._runs_to_psl(pend, runs)
+
+    def _build_runs(self, pend: _Pending, results: List[DpResult],
+                    modes: List[str]) -> List[Tuple[str, int, int, int]]:
+        """Resolve DP slots into concrete (op, q0, t0, len) runs, sorted."""
+        runs: List[Tuple[str, int, int, int]] = []  # (op, q0, t0, len)
+
+        def push(op: str, q0: int, t0: int, ln: int) -> None:
+            if ln > 0:
+                runs.append((op, q0, t0, ln))
+
+        for kind, q0, t0, ln in pend.ops:
+            if kind == "DP":
+                slot = pend.dp_slots[ln]  # already a global batch index
+                res = results[slot]
+                if not res.ops:
+                    continue
+                if modes[slot] == "extend_left":
+                    # solved on reversed arrays: alignment covers
+                    # q[q0-q_len:q0] / t[t0-t_len:t0], ops reversed
+                    qq, tt = q0 - res.q_len, t0 - res.t_len
+                    op_list = list(reversed(res.ops))
+                else:
+                    qq, tt = q0, t0
+                    op_list = res.ops
+                for op, dq, dt in op_list:
+                    push(op, qq, tt, dq if op != "D" else dt)
+                    qq += dq
+                    tt += dt
+            else:
+                push(kind, q0, t0, ln)
+
+        runs.sort(key=lambda r: (r[1], r[2]))
+        return runs
+
+    _OP_ID = {"M": 0, "I": 1, "D": 2, "N": 3}
+
+    def _runs_to_psl(self, pend: _Pending,
+                     runs: List[Tuple[str, int, int, int]]
+                     ) -> Optional[PslRecord]:
+        if not runs:
+            return None
+        op_id = self._OP_ID
+        arr = np.array([(op_id[op], q0, t0, ln)
+                        for op, q0, t0, ln in runs], np.int64)
+        stats, bs, bq, bt, cs_str = native_emit_psl(
+            pend.q_codes, self.index.seq_codes,
+            arr[:, 0].astype(np.int8), np.ascontiguousarray(arr[:, 1]),
+            np.ascontiguousarray(arr[:, 2]),
+            np.ascontiguousarray(arr[:, 3]))
+        return self._psl_record(
+            pend, stats, bs.tolist(), bq.tolist(), bt.tolist(), cs_str)
+
+    def _psl_record(self, pend: _Pending, stats, block_sizes, q_starts,
+                    t_starts, cs_str) -> Optional[PslRecord]:
+        """Assemble the PslRecord from emitted stats + merged blocks
+        (shared by the native and numpy emission paths)."""
+        if not block_sizes:
+            return None
+        matches, mismatches, nI, I, nD, D, n_bases = (
+            int(x) for x in stats[:7])
+        q = pend.q_codes
+        chrom_off = int(self.index.chrom_offsets[pend.chrom_idx])
+        denom = matches + mismatches + I + D
+        return PslRecord(
+            matches=matches, mismatches=mismatches, rep_matches=0,
+            n_count=n_bases, q_num_insert=nI, q_base_insert=I,
+            t_num_insert=nD, t_base_insert=D, strand=pend.strand,
+            q_name=pend.name, q_size=len(q), q_start=q_starts[0],
+            q_end=q_starts[-1] + block_sizes[-1],
+            t_name=self.index.chrom_names[pend.chrom_idx],
+            t_size=int(self.index.chrom_sizes[pend.chrom_idx]),
+            t_start=t_starts[0] - chrom_off,
+            t_end=t_starts[-1] + block_sizes[-1] - chrom_off,
+            block_count=len(block_sizes), block_sizes=block_sizes,
+            q_starts=q_starts,
+            t_starts=[t - chrom_off for t in t_starts],
+            accuracy=matches / denom if denom else 0.0,
+            cs=cs_str, sequence=pend.seq)
+
+    # -------------------------------------------------------------- public
+
+    def map_batch(self, reads: Sequence[Tuple[str, str]]
+                  ) -> List[PslRecord]:
+        """Align a batch of (name, seq) reads; primary alignments only.
+        One fused C call per read does seed+chain, gap fill (splice-point
+        search + affine DP), run assembly and extended-PSL emission."""
+        out: List[PslRecord] = []
+        for name, seq in reads:
+            codes = encode(seq)
+            strand, ci, stats, bs, bq, bt, cs = native_align_read(
+                *self._fused_args(codes, cfg_min_len(self.cfg)))
+            if strand is None:
+                continue
+            pend = _Pending(name, seq, "+" if strand == 0 else "-",
+                            codes if strand == 0 else revcomp_codes(codes),
+                            ci, [], [])
+            rec = self._psl_record(pend, stats, bs, bq, bt, cs)
+            if rec is not None:
+                out.append(rec)
+        return out
+
+    def _fused_args(self, codes: np.ndarray, min_chain: float) -> tuple:
+        """The shared argument tuple for the fused native entry points
+        (index + chain constants + DP/fill parameters)."""
+        cfg = self.cfg
+        return (codes, cfg.kmer, cfg.window, self.max_occ, 100, self.index,
+                cfg.min_intron, cfg.max_intron, 1, 12.0, 4.0, 0.3, 512,
+                min_chain, cfg.match, cfg.mismatch, cfg.gap_open,
+                cfg.gap_extend, cfg.end_bonus, cfg.zdrop,
+                cfg.band_width, cfg.max_end_extend, cfg.splice_slack,
+                cfg.noncanonical_penalty)
+
+
+    def map_batch_runs(self, reads: Sequence[Tuple[str, str]]):
+        """Like map_batch but returns raw (name, strand, q_codes, runs)
+        tuples, the op-level interface used by the star consensus
+        (poa/star.py); one fused C call per read."""
+        out = []
+        for name, seq in reads:
+            codes = encode(seq)
+            # min_chain 0: the runs path applies no min-chain gate
+            strand, _ci, runs = native_align_read_runs(
+                *self._fused_args(codes, 0.0))
+            if strand is None:
+                continue
+            q_codes = codes if strand == 0 else revcomp_codes(codes)
+            out.append((name, "+" if strand == 0 else "-", q_codes, runs))
+        return out
+
+    def map_all_targets(self, name: str, seq: str) -> List[PslRecord]:
+        """Emit one alignment per target sequence with a viable chain (both
+        strands considered, better one kept) — the `-N <many>` analogue
+        used for allele typing (utils/hla.py)."""
+        cfg = self.cfg
+        per_chrom: Dict[int, Tuple[List[Segment], float, str, np.ndarray]] = {}
+        codes = encode(seq)
+        for strand, q_codes in (("+", codes), ("-", revcomp_codes(codes))):
+            pos, hashes = minimizers(q_codes, cfg.kmer, cfg.window)
+            if len(pos) == 0:
+                continue
+            qidx, gpos = self.index.lookup(hashes, self.max_occ)
+            if len(qidx) == 0:
+                continue
+            qpos = pos[qidx]
+            ci, _local = self.index.position_to_chrom(gpos)
+            for c in np.unique(ci):
+                mask = ci == c
+                segs = collapse_anchors(qpos[mask], gpos[mask], cfg.kmer)
+                chain, score = chain_segments(
+                    segs, min_intron=cfg.min_intron,
+                    max_intron=cfg.max_intron)
+                if chain and (int(c) not in per_chrom
+                              or score > per_chrom[int(c)][1]):
+                    per_chrom[int(c)] = (chain, score, strand, q_codes)
+        out: List[PslRecord] = []
+        for c, (chain, score, strand, q_codes) in sorted(per_chrom.items()):
+            if score < cfg_min_len(cfg):
+                continue
+            problems: List[DpProblem] = []
+            pend = self._fill(name, seq, strand, q_codes, chain, c, problems)
+            if pend is None:
+                continue
+            modes = [p.mode for p in problems]
+            results = solve_dp_native(problems, cfg)
+            rec = self._emit(pend, results, modes)
+            if rec is not None:
+                out.append(rec)
+        return out
+
+
+def cfg_min_len(cfg: AlignConfig) -> float:
+    return float(cfg.min_chain_score)
 
 
 class TorchSpliceAligner(SpliceAligner):
@@ -52,25 +373,27 @@ class TorchSpliceAligner(SpliceAligner):
     def __init__(self, genome, cfg: Optional[AlignConfig] = None,
                  device="cuda"):
         dev = resolve_device(device)
-        super().__init__(genome, _port_cfg(cfg or AlignConfig()))
+        super().__init__(genome, cfg)
         self._bind(dev)
 
     @classmethod
     def from_aligner(cls, aligner: SpliceAligner, device="cuda"
                      ) -> "TorchSpliceAligner":
         """A port aligner sharing `aligner`'s GenomeIndex (no rebuild)."""
-        if aligner._sharded is not None:
-            raise NotImplementedError("a sharded index is not yet ported")
         dev = resolve_device(device)
         self = object.__new__(cls)
-        self.cfg = _port_cfg(aligner.cfg)
+        self.cfg = aligner.cfg
         self.index = aligner.index
         self.max_occ = aligner.max_occ
-        self._sharded = None
-        from mandalorion_tpu.align.extend import solve_dp_native
-        self.dp_backend = solve_dp_native
         self._bind(dev)
         return self
+
+    def host_twin(self) -> SpliceAligner:
+        twin = object.__new__(SpliceAligner)
+        twin.cfg = self.cfg
+        twin.index = self.index
+        twin.max_occ = self.max_occ
+        return twin
 
     def _bind(self, device: torch.device) -> None:
         self.device = device
@@ -81,10 +404,6 @@ class TorchSpliceAligner(SpliceAligner):
         """C seed stage: (codes_all, read_off, seeded), seeded being
         native_stage_seed_batch's (n_cand, read, strand, chrom, tbase,
         n_seg, (qs, qe, ts, te, cov))."""
-        require_native()
-        if self.index.bucket_lo is None:
-            raise RuntimeError("the device route needs an index with "
-                               "bucket_lo (built by the native library)")
         cfg = self.cfg
         code_list = [encode(seq) for _name, seq in reads]
         read_off = np.zeros(len(reads) + 1, np.int64)
@@ -119,8 +438,7 @@ class TorchSpliceAligner(SpliceAligner):
     def map_batch(self, reads: Sequence[Tuple[str, str]]
                   ) -> List[PslRecord]:
         """Align a batch of (name, seq) reads on the device route;
-        primary alignments only, byte-identical to the host path. Raises
-        when the native library is missing (no Python staging fallback)."""
+        primary alignments only, byte-identical to the host path."""
         codes_all, read_off, seeded = self.seed_batch(reads)
         if seeded[0] == 0:
             return []

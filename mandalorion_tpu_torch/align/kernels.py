@@ -28,7 +28,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from mandalorion_tpu.config import AlignConfig
+from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch import _build
 from mandalorion_tpu_torch.runtime import LaunchCounter
 

@@ -1,12 +1,17 @@
-"""`mando-tpu-torch`: the `mando-tpu` command line with module A on a
-CUDA device.
+"""`mando-tpu-torch`: the Mando-compatible command line
+(`Mando.py:21-199` flag set) on PyTorch and CUDA.
 
-    mando-tpu-torch -p out -g ann.gtf -G genome.fa -f reads.fofn --device cuda
+    mando-tpu-torch -p . -g ann.gtf -G genome.fa -f reads.fofn
 
-It takes the `mando-tpu` flag set plus --device. Module A always runs
-the port's device route, so --dp_backend and --chain_backend select
-nothing here; --devices > 1, --index_backend sharded and
---consensus_backend device are not yet ported and raise.
+It takes the `mando-tpu` flag set plus --device. Module A runs the device
+route (chain and DP kernels on --device) by default; the host route
+(native C++ in -t forked workers, a process that never touches CUDA) is
+
+    mando-tpu-torch ... --chain_backend native --dp_backend numpy
+
+--consensus_backend device runs module D's graph POA through the POA
+kernels on --device. --devices > 1 and --index_backend sharded are not
+yet ported and raise.
 """
 
 from __future__ import annotations
@@ -16,19 +21,89 @@ import os
 import shutil
 import sys
 
-from mandalorion_tpu.config import config_from_args
-from mandalorion_tpu.pipeline.cli import build_parser as _reference_parser
-from mandalorion_tpu.pipeline.stages import Paths
-from mandalorion_tpu_torch.pipeline.stages import run_pipeline
+from mandalorion_tpu_torch.config import config_from_args
+from mandalorion_tpu_torch.pipeline.stages import (
+    VERSION, Paths, run_pipeline)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _reference_parser()
-    p.usage = ("\n\nmando-tpu-torch -p . -g gencodeV29.gtf -G hg38.fasta "
-               "-f reads.fofn --device cuda\n")
+    p = argparse.ArgumentParser(
+        usage=("\n\nmando-tpu-torch -p . -g gencodeV29.gtf -G hg38.fasta "
+               "-f reads.fofn --device cuda\n"))
+    p.add_argument("-p", "--path", type=str, default=".",
+                   help="Directory to put output files into")
+    p.add_argument("-u", "--upstream_buffer", type=str, default="10",
+                   help="upstream leniency window for polyA/TSS (default 10)")
+    p.add_argument("-d", "--downstream_buffer", type=str, default="50",
+                   help="downstream leniency window (default 50)")
+    p.add_argument("-g", "--genome_annotation", type=str, default="None",
+                   help="Genome annotation file (gtf)")
+    p.add_argument("-G", "--genome_sequence", type=str,
+                   help="Genome file (fasta)")
+    p.add_argument("-r", "--minimum_ratio", type=str, default="0.01",
+                   help="min proportion of locus reads per isoform")
+    p.add_argument("-i", "--minimum_internal_ratio", type=str, default="1")
+    p.add_argument("-R", "--minimum_reads", type=str, default="3",
+                   help="minimum reads per isoform (default 3)")
+    p.add_argument("-f", "--Consensus_reads", type=str,
+                   help="fasta/fastq path, comma list, or .fofn")
+    p.add_argument("-O", "--overhangs", type=str, default="0,40,0,40",
+                   help="min5,max5,min3,max3 unaligned end bounds")
+    p.add_argument("-t", "--minimap2_threads", type=str, default="8",
+                   help="host threads")
+    p.add_argument("-I", "--minimum_isoform_length", type=str, default="200")
+    p.add_argument("-n", "--minimum_feature_count", type=str, default="2")
+    p.add_argument("-w", "--splice_site_window", type=str, default="1")
+    p.add_argument("-A", "--Acutoff", type=str, default="0.5")
+    p.add_argument("-W", "--white_list_polyA", type=str, default="0")
+    p.add_argument("-m", "--multi_exon_only", default="0",
+                   action="store_const", const="1")
+    p.add_argument("-j", "--junctions", type=str,
+                   default="gtag,gcag,atac,ctac,ctgc,gtat")
+    p.add_argument("-M", "--Modules", default="APDFQ",
+                   help="modules to run: subset of APDFQ")
+    p.add_argument("-P", "--pacbio", default=False, action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--dp_backend", default="device",
+                   choices=["device", "numpy"],
+                   help="gap-fill DP backend (bit-identical): device = "
+                        "the CUDA kernel on --device, numpy = host "
+                        "native C++ (with --chain_backend native)")
+    p.add_argument("--chain_backend", default="device",
+                   choices=["device", "native"],
+                   help="chain DP backend: one batched kernel launch per "
+                        "read batch on --device, or the native host path "
+                        "(with --dp_backend numpy)")
+    p.add_argument("--consensus_engine", default="graph",
+                   choices=["star", "graph"],
+                   help="isoform consensus engine: star (backbone+votes, "
+                        "fast path) or graph (full partial-order "
+                        "alignment; batched on device per locus)")
+    p.add_argument("--consensus_backend", default="auto",
+                   choices=["auto", "native", "device"],
+                   help="graph-POA execution backend: auto (the host "
+                        "C++ engine), native, or device (the batched "
+                        "POA kernels on --device)")
+    p.add_argument("--index_backend", default="replicated",
+                   choices=["replicated", "sharded"],
+                   help="genome index placement: replicated per host; "
+                        "sharded (hash ranges over a device mesh) is not "
+                        "yet ported")
+    p.add_argument("--devices", default=0, type=int,
+                   help="devices to shard the batched dispatches over; "
+                        "more than one is not yet ported")
+    p.add_argument("--index_cache", default="", type=str,
+                   help="persist/reuse the genome minimizer index at this"
+                        " .npz path (minimap2 .mmi analogue); rebuilt"
+                        " automatically when genome or k/w change")
+    p.add_argument("--external_sam", default=None, type=str,
+                   help="use alignments from this SAM file instead of the "
+                        "built-in aligner (the reference's --mm2_path "
+                        "interop: run with -M PDFQ)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device for module A's chain and DP kernels (cpu "
-                        "runs their plain PyTorch versions)")
+                   help="device of the device routes (cpu runs the "
+                        "kernels' plain PyTorch versions)")
+    p.add_argument("-v", "--version", action="version", version=VERSION)
     return p
 
 
@@ -38,9 +113,6 @@ def _not_ported(args) -> None:
                                   "mandalorion_tpu_torch")
     if args.index_backend == "sharded":
         raise NotImplementedError("--index_backend sharded is not yet "
-                                  "ported to mandalorion_tpu_torch")
-    if args.consensus_backend == "device":
-        raise NotImplementedError("--consensus_backend device is not yet "
                                   "ported to mandalorion_tpu_torch")
 
 
@@ -54,10 +126,11 @@ def main(argv=None) -> int:
     _not_ported(args)
     cfg = config_from_args(args)
     if args.external_sam:
-        # as mando-tpu: the SAM replaces module A's alignments
         paths = Paths(args.path)
         os.makedirs(paths.tmp, exist_ok=True)
         shutil.copy(args.external_sam, paths.t("mm2Alignments.sam"))
+        # a stale PSL from a previous run would shadow the external SAM
+        # (module P only converts when the PSL is absent/empty)
         stale = paths.t("mm2Alignments.psl")
         if os.path.exists(stale):
             os.remove(stale)

@@ -33,21 +33,16 @@ def resolve_device(device) -> torch.device:
 def fork_ok() -> bool:
     """True when forking a worker that may run port code is safe: this
     process has no other Python threads and has not initialised CUDA (a
-    CUDA context does not survive fork). mandalorion_tpu.runtime.fork_ok
-    checks only for a live JAX backend."""
+    CUDA context does not survive fork)."""
     return threading.active_count() == 1 and not torch.cuda.is_initialized()
 
 
 def require_native():
-    """The reference's native C++ library (built with g++ on first use).
-    Raises when it cannot load: the port has no Python staging fallback,
-    and without it the reference's module D would take its JAX route."""
-    from mandalorion_tpu.native import load_native
-    lib = load_native()
-    if lib is None:
-        raise RuntimeError("mandalorion_tpu_torch needs the native library "
-                           "(mandalorion_tpu.native.load_native() failed)")
-    return lib
+    """The port's native C++ library (built with g++ on first use).
+    Raises when it cannot be built or loaded: the port has no numpy or
+    Python fallback for it."""
+    from mandalorion_tpu_torch.native import load_native
+    return load_native()
 
 
 def kernel_build_dir() -> str:

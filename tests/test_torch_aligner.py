@@ -2,7 +2,7 @@
 host SpliceAligner: identical PSL records, record for record.
 
 On the CPU both device stages run their kernels' plain PyTorch versions;
-the three native C stages are the reference's. The harness follows
+the three native C stages are the port's own library. The harness follows
 tests/test_stage_native.py: several chromosomes, the seed stage's
 capacity retry, junk and empty reads, and an aligner built from another
 one's index.
@@ -18,7 +18,8 @@ from mandalorion_tpu.align.aligner import SpliceAligner
 from mandalorion_tpu.config import AlignConfig
 from mandalorion_tpu.native import load_native
 from mandalorion_tpu_torch.align import chain_kernel, kernels
-from mandalorion_tpu_torch.align.aligner import TorchSpliceAligner
+from mandalorion_tpu_torch.align.aligner import (
+    SpliceAligner as PortSpliceAligner, TorchSpliceAligner)
 
 pytestmark = pytest.mark.skipif(load_native() is None,
                                 reason="native library unavailable")
@@ -119,10 +120,11 @@ def test_from_aligner_shares_the_index(tmp_path):
     # on the CPU the resident genome tensor is the index's own buffer
     assert port.genome_codes.data_ptr() == \
         host.index.seq_codes.ctypes.data
-    assert port.cfg.dp_backend == port.cfg.chain_backend == "torch"
+    assert port.cfg is host.cfg
     twin = port.host_twin()
-    assert type(twin) is SpliceAligner and twin.index is host.index
+    assert type(twin) is PortSpliceAligner and twin.index is host.index
     _same(port, host, reads)
+    _same(twin, host, reads)
 
 
 def test_map_batch_runs_both_device_stages(tmp_path, monkeypatch):

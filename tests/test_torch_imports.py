@@ -1,10 +1,12 @@
-"""mandalorion_tpu_torch never imports jax, resolves devices explicitly,
-and knows when forking is unsafe.
+"""mandalorion_tpu_torch imports neither jax nor the JAX package, resolves
+devices explicitly, and knows when forking is unsafe.
 
 tests/conftest.py imports jax into every test process, so the import
 check runs in a fresh interpreter."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -29,38 +31,77 @@ def _port_modules():
     return sorted(mods)
 
 
+FORBIDDEN = {"mandalorion_tpu", "jax", "jaxlib", "__graft_entry__"}
+
+
+def _imported_tops(tree):
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add((node.module or "").split(".")[0])
+    return tops
+
+
+def _port_sources():
+    for dirpath, _dirs, files in os.walk(PORT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "mandalorion_tpu_torch.pipeline.cli" in mods and len(mods) >= 10
+    assert "mandalorion_tpu_torch.pipeline.cli" in mods and len(mods) >= 40
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib'))\n"
-            "print('JAX', bad)\n")
+            "('jax', 'jaxlib', 'mandalorion_tpu'))\n"
+            "print('BAD', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "JAX []" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_no_port_source_imports_the_jax_package():
+    """No `import` / `from` of mandalorion_tpu (the exact top-level name)
+    or jax in any source file of the port, lazy imports included."""
+    checked = 0
+    for path in _port_sources():
+        with open(path) as fh:
+            tops = _imported_tops(ast.parse(fh.read()))
+        assert not tops & FORBIDDEN, (path, tops & FORBIDDEN)
+        checked += 1
+    assert checked >= 40
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the reference package only through the port
-    (and in its subprocesses), and never imports jax."""
-    import ast
+    """chip_smoke.py imports the port and never the JAX package or jax,
+    and names neither in a string it hands to a subprocess."""
     with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
         tree = ast.parse(fh.read())
-    tops = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            tops.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            tops.add((node.module or "").split(".")[0])
+    tops = _imported_tops(tree)
     assert "mandalorion_tpu_torch" in tops
-    assert not tops & {"mandalorion_tpu", "jax", "jaxlib",
-                       "__graft_entry__"}, tops
+    assert not tops & FORBIDDEN, tops
+    module_name = re.compile(r"\b(mandalorion_tpu|jax|jaxlib)\b")
+    launchers = {"run", "Popen", "check_output", "check_call", "call"}
+    n_calls = 0
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = getattr(node.func, "id", getattr(node.func, "attr", None))
+        if name not in launchers:
+            continue
+        n_calls += 1
+        for arg in ast.walk(node):
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                assert not module_name.search(arg.value), arg.value
+    assert n_calls >= 2
 
 
 def test_cuda_without_a_card_raises():
@@ -100,7 +141,7 @@ def test_build_is_keyed_by_sources_and_flags(monkeypatch):
     path = _build.library_path()
     assert path.startswith(runtime.kernel_build_dir())
     assert sorted(os.path.basename(s) for s in _build.sources()) == \
-        ["chain.cu", "dp.cu"]
+        ["chain.cu", "dp.cu", "poa_fwd.cu", "poa_walk.cu"]
     for flag in ("arch=compute_90a,code=sm_90a", "-fmad=false", "-O3"):
         assert flag in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
