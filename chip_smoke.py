@@ -19,14 +19,19 @@ line is printed only when every phase passed:
      slice's first read batch;
    - chain: random 512-segment candidates and the real seed-stage output
      of that batch;
-   - poa_fwd, poa_walk: (a) real chunks of a consensus run of 16 isoforms
-     x 20 reads x about 2 kb at the first, a middle and the last round,
-     adaptive band; (b) the same chunks under the static band; (c) a
-     graph with a predecessor more than 256 rows back (one read carries a
-     320-base insertion); (d) one isoform whose queries are longer than
-     32,768 bases, with a 40-base insertion behind column 32,768: the
-     consensus must equal the native C++ engine's; and, after the slice,
-     the largest chunk module D dispatched in it.
+   - poa_fwd, poa_walk, poa_sweep: (a) real chunks of a consensus run of
+     16 isoforms x 20 reads x about 2 kb at the first, a middle and the
+     last round, adaptive band; (b) the same chunks under the static
+     band; (c) a graph with a predecessor more than 256 rows back (one
+     read carries a 320-base insertion); (d) one isoform whose queries
+     are longer than 32,768 bases, with a 40-base insertion behind column
+     32,768: the consensus must equal the native C++ engine's, and its
+     graphs are over the record walk's rank limit, so asked for records
+     it must take the step walk, by the launch counters; (e) a graph
+     under that limit whose query carries 30-base insertions, the last
+     of them behind column 32,768; and, after the slice, the largest
+     chunk module D dispatched in it. On every chunk the record walk's
+     records, expanded, must be the step walk's steps.
    Times come from CUDA events at the main path's own shapes: the first
    read batch for dp and chain, module D's largest chunk for the POA
    kernels. Each kernel's bound is the larger of its bytes over the
@@ -37,8 +42,13 @@ line is printed only when every phase passed:
    (APDFQ: module A on its device route, module D's graph POA through the
    POA kernels) and through the port's host route (`--chain_backend
    native --dp_backend numpy`, native consensus) in a separate process
-   that never touches CUDA. The six artifacts must be byte-identical and
-   every kernel's launch counter must be > 0 in the device run.
+   that never touches CUDA. The device route runs four times, in turns:
+   step walk, record walk (MANDO_POA_SWEEP=1), record walk, step walk.
+   The six artifacts must be byte-identical every time; the launch
+   counters, set to 0 before each run, must show dp, chain, forward and
+   step walk in the step runs, and in the record runs one poa_sweep
+   launch for every chunk under the rank limit and a step walk for the
+   rest.
 5. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -83,6 +93,10 @@ POA_SETS = dict(n_iso=16, n_reads=20, length=2000, err=0.03)
 POA_LONG_EDGE = dict(length=2000, insert=320, band=340)
 # `at` - 100 >= 32768: the insertion's origin column needs 16 bits
 POA_LONG_QUERY = dict(length=33_000, insert=40, at=32_900, band=340)
+# a graph of `length` nodes stays under the record walk's rank limit; the
+# query's insertions push its last columns past 32768
+POA_LONG_RUNS = dict(length=31_500, insert=30, every=500, band=64,
+                     behind=1 << 15)
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s of float32 outside the tensor cores, which counts a
@@ -126,6 +140,14 @@ POA_OPS_PER_PRED = 19
 # windowed cell read (sub, 2 compares, and, select) 5; op decode 1;
 # node0 (shift, sub) 2; op compare 1; emit (j - 1, r - 1) 2; k + 1 1.
 WALK_OPS_PER_STEP = 17
+# poa_sweep_plain, the cheapest (diagonal) transition: not-done test 5; one
+# windowed cell read 5; op decode 1; node0 2; op compare 1; rec0 (j - 1, the
+# type's shift is constant) 1; rec1 (r + 1, shift) 2; k + 1 1. A transition
+# that writes no record (entering a deletion) is not counted.
+SWEEP_OPS_PER_RECORD = 18
+# bytes a record needs read: its row's window offset and one cell (hpack for
+# a diagonal, d1p or d2p for a deletion), and opack too for an insertion run
+SWEEP_READ_BYTES = {poa.REC_DIAG: 8, poa.REC_DEL: 8, poa.REC_INS: 12}
 
 
 def log(msg: str) -> None:
@@ -383,27 +405,54 @@ def poa_problem_tensors(arrays, device):
     return (base, preds, nn, qq, ql), (nn, ends, ql)
 
 
-def check_poa_chunk(what, arrays, params, W, l_cap, device):
-    """Forward and walk kernels against their plain versions on one chunk:
-    whole tensors (rows past nn[b] are zero on both sides), buf[:ks] and
-    ks. Returns the measured largest differences (forward, walk); raises
-    unless both are 0."""
+def check_poa_chunk(what, arrays, params, W, l_cap, device,
+                    sweep_only=False):
+    """Forward, step walk and record walk kernels against their plain
+    versions on one chunk: whole matrices (rows past nn[b] are zero on
+    both sides), buf[:ks] and ks, recs[:counts] and counts; and the
+    records, expanded on the host, against the step kernel's steps.
+    With sweep_only the plain record walk reads the kernel's matrices and
+    neither the forward nor the step walk is compared with its plain
+    version (a plain walk costs a millisecond a step). Returns the
+    measured largest differences (forward, walk, sweep); raises unless
+    all are 0."""
     fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
     mats = poa.poa_forward(*fwd_in, params, W)
     buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
+    recs, counts = poa.poa_sweep(nn, ends, ql, mats)
     torch.cuda.synchronize()
-    want = poa.poa_forward_plain(*fwd_in, params, W)
-    e_fwd = max_abs_err(mats, want)
-    want_buf, want_ks = poa.poa_walk_plain(nn, ends, ql, want, l_cap)
-    live = torch.arange(buf.shape[1], device=device)[None, :, None] \
-        < want_ks[:, None, None]
-    e_walk = max_abs_err([ks, buf * live], [want_ks, want_buf * live])
-    if e_fwd or e_walk:
+
+    def live(rows, n):
+        return rows * (torch.arange(rows.shape[1], device=device)
+                       [None, :, None] < n[:, None, None])
+
+    e_fwd = e_walk = 0
+    want = mats
+    if not sweep_only:
+        want = poa.poa_forward_plain(*fwd_in, params, W)
+        e_fwd = max_abs_err(mats, want)
+        want_buf, want_ks = poa.poa_walk_plain(nn, ends, ql, want, l_cap)
+        e_walk = max_abs_err([ks, live(buf, want_ks)],
+                             [want_ks, live(want_buf, want_ks)])
+    want_recs, want_counts = poa.poa_sweep_plain(nn, ends, ql, want)
+    e_sweep = max_abs_err([counts, live(recs, want_counts)],
+                          [want_counts, live(want_recs, want_counts)])
+    if e_fwd or e_walk or e_sweep:
         raise AssertionError(f"poa kernels != plain on {what}: forward max "
-                             f"err {e_fwd}, walk max err {e_walk}")
+                             f"err {e_fwd}, walk max err {e_walk}, sweep "
+                             f"max err {e_sweep}")
+    buf_h, ks_h = buf.cpu().numpy(), ks.cpu().numpy()
+    recs_h, counts_h = recs.cpu().numpy(), counts.cpu().numpy()
+    for b in range(len(ks_h)):
+        steps = poa.expand_walk_records(recs_h[b], int(counts_h[b]))
+        if not np.array_equal(steps, buf_h[b, :ks_h[b]]):
+            raise AssertionError(f"{what}: problem {b}'s records do not "
+                                 f"expand to the step walk's steps")
     log(f"poa: {what}: {len(nn)} problems, rows <= {int(nn.max())}, W {W}, "
-        f"steps <= {int(ks.max())}: forward and walk kernels == plain")
-    return e_fwd, e_walk
+        f"steps <= {int(ks.max())}, records <= {int(counts.max())}: "
+        + ("sweep kernel" if sweep_only else "forward, walk and sweep kernels")
+        + " == plain, records expand to the step kernel's steps")
+    return e_fwd, e_walk, e_sweep
 
 
 def capture_consensus(sets, params, device, rounds):
@@ -418,8 +467,8 @@ def capture_consensus(sets, params, device, rounds):
 
 
 def check_poa_cases(rng, device):
-    """Cases (a) to (d) of the module docstring. Returns the measured
-    largest differences (forward, walk) over every chunk compared."""
+    """Cases (a) to (e) of the module docstring. Returns the measured
+    largest differences (forward, walk, sweep) over every chunk compared."""
     errs = []
     cfg = POA_SETS
     sets = []
@@ -499,23 +548,105 @@ def check_poa_cases(rng, device):
     log(f"poa: (d) queries of {len(with_ins)} bases, {len(inserted)} bases "
         f"inserted from column {int(inserted.min())} on (a tier-2 origin), "
         f"W {W}: consensus on the card == native engine ({card_s:.1f}s)")
-    return max(e[0] for e in errs), max(e[1] for e in errs)
+    # its graphs hold more nodes than a record's rank field: asked for
+    # records, every chunk must take the step walk
+    swept, n_sweep, n_walk, caps, _kept = consensus_by_records(
+        [reads], params, device)
+    if swept[0].tolist() != consensi[0].tolist() or n_sweep != 0 \
+            or n_walk != len(caps) or min(caps) + 2 < poa.SWEEP_RANK_LIMIT:
+        raise AssertionError(f"(d) row caps {caps} asked for records: "
+                             f"{n_sweep} sweep and {n_walk} walk launches")
+    log(f"poa: (d) asked for records, row caps {caps} are over the rank "
+        f"limit: {n_walk} step walk launches, {n_sweep} sweep launches, "
+        f"same consensus")
+
+    cfg = POA_LONG_RUNS
+    true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
+    pieces = []
+    for lo in range(0, cfg["length"], cfg["every"]):
+        pieces += [true[lo:lo + cfg["every"]],
+                   rng.integers(0, 4, cfg["insert"]).astype(np.uint8)]
+    with_runs = np.concatenate(pieces[:-1])
+    reads = [true, with_runs, true.copy()]
+    params = PoaParams(band=cfg["band"], adaptive=True)
+    swept, n_sweep, n_walk, caps, kept = consensus_by_records(
+        [reads], params, device, {1})
+    if swept[0].tolist() != native_poa_consensus(reads, params).tolist():
+        raise AssertionError("(e) consensus by records != native engine")
+    # round 1 is under the rank limit, round 2's graph has grown over it
+    if (n_sweep, n_walk) != (1, 1):
+        raise AssertionError(f"(e) row caps {caps}: {n_sweep} sweep and "
+                             f"{n_walk} walk launches, expected 1 and 1")
+    _k, W, l_cap, arrays = kept[0]
+    errs.append(check_poa_chunk(f"(e) round 1, an insertion run behind "
+                                f"column {cfg['behind']}", arrays, params, W,
+                                l_cap, device, sweep_only=True))
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
+    recs, counts = poa.poa_sweep(nn, ends, ql,
+                                 poa.poa_forward(*fwd_in, params, W))
+    live = recs[0, :int(counts[0])].cpu().numpy()
+    runs = live[live[:, 0] >> 16 == poa.REC_INS]
+    origins = runs[:, 1] & 0xFFFF
+    long_runs = (runs[:, 0] & 0xFFFF) - origins + 1 >= cfg["insert"]
+    if not (long_runs & (origins >= cfg["behind"])).any():
+        raise AssertionError(f"(e) no run of {cfg['insert']} inserted bases "
+                             f"with its origin behind column "
+                             f"{cfg['behind']}: origins "
+                             f"{origins[long_runs][:8]}")
+    log(f"poa: (e) graph of {cfg['length']} nodes, query of "
+        f"{len(with_runs)} bases, {int(long_runs.sum())} runs of >= "
+        f"{cfg['insert']} inserted bases, origins up to "
+        f"{int(origins[long_runs].max())}, {len(live)} records; by records "
+        f"== native engine, row caps {caps}: {n_sweep} sweep + {n_walk} "
+        f"step walk launches")
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+def consensus_by_records(sets, params, device, rounds=()):
+    """poa_consensus_batch(walk="sweep") on the card, keeping the chunks
+    of `rounds`: (consensi, poa_sweep launches, poa_walk launches, the
+    chunks' row caps, [(round, W, l_cap, arrays)])."""
+    before = (poa.POA_SWEEP_LAUNCHES.count, poa.POA_WALK_LAUNCHES.count)
+    poa.OBSERVER = obs = poa.RunObserver(keep_rounds=rounds)
+    try:
+        consensi = poa.poa_consensus_batch(sets, params, device, "sweep")
+    finally:
+        poa.OBSERVER = None
+    return (consensi, poa.POA_SWEEP_LAUNCHES.count - before[0],
+            poa.POA_WALK_LAUNCHES.count - before[1],
+            [c[1] for c in obs.chunks], obs.kept)
 
 
 def check_poa_main_path(largest, device) -> dict:
     """The largest chunk module D dispatched in the slice run: kernels
     against plain, timed by CUDA events, with their bounds."""
     arrays, W, l_cap, params = largest
-    e_fwd, e_walk = check_poa_chunk("module D's largest chunk", arrays,
-                                    params, W, l_cap, device)
+    e_fwd, e_walk, e_sweep = check_poa_chunk(
+        "module D's largest chunk", arrays, params, W, l_cap, device)
     fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
     mats = poa.poa_forward(*fwd_in, params, W)
     _buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
+    recs, counts = poa.poa_sweep(nn, ends, ql, mats)
     f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in, params, W), 3)
     f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in, params, W), 1)
-    w_ms = cuda_ms(lambda: poa.poa_walk(nn, ends, ql, mats, l_cap), 3)
+    # the two walks in turns, so that neither has the warmer card
+    def by_steps():
+        poa.poa_walk(nn, ends, ql, mats, l_cap)
+
+    def by_records():
+        poa.poa_sweep(nn, ends, ql, mats)
+
+    # one untimed launch of each first: the plain forward before this
+    # leaves the card cold, and the first timed turn would pay for it
+    by_steps()
+    by_records()
+    turn_ms = [cuda_ms(fn, 3) for fn in (by_steps, by_records, by_records,
+                                         by_steps)]
+    w_ms = (turn_ms[0] + turn_ms[3]) / 2
+    s_ms = (turn_ms[1] + turn_ms[2]) / 2
     w_plain = cuda_ms(lambda: poa.poa_walk_plain(nn, ends, ql, mats, l_cap),
                       1)
+    s_plain = cuda_ms(lambda: poa.poa_sweep_plain(nn, ends, ql, mats), 1)
     base, preds, nn_a, _ends, qq, _ql = arrays
     rows = nn_a.astype(np.int64)
     cells = int(((rows + 1) * W).sum())
@@ -531,16 +662,35 @@ def check_poa_main_path(largest, device) -> dict:
     # written; the end-rank scan reads endcol and the end flags up to nn
     w_bound = bound(n_steps * 20 + int((rows * 5).sum()),
                     n_steps * WALK_OPS_PER_STEP, PEAK_I32_OPS_S)
+    # per record what its type reads (SWEEP_READ_BYTES) and 8 bytes
+    # written; the same end-rank scan
+    recs_h, counts_h = recs.cpu().numpy(), counts.cpu().numpy()
+    types = np.concatenate([recs_h[b, :k, 0] >> 16 & 3
+                            for b, k in enumerate(counts_h)])
+    by_type = {t: int((types == t).sum()) for t in SWEEP_READ_BYTES}
+    n_recs = len(types)
+    s_bound = bound(sum(n * SWEEP_READ_BYTES[t] for t, n in by_type.items())
+                    + n_recs * 8 + int((rows * 5).sum()),
+                    n_recs * SWEEP_OPS_PER_RECORD, PEAK_I32_OPS_S)
     log(f"poa: module D's largest chunk: {len(rows)} problems, n_cap "
         f"{base.shape[1]}, W {W}, {cells} cells, {n_preds} predecessors, "
         f"{n_steps} walk steps; forward {f_ms:.3f} ms vs plain "
         f"{f_plain:.3f} ms, bound {f_bound[0]:.6f} ms by {f_bound[1]}; walk "
         f"{w_ms:.3f} ms vs plain {w_plain:.3f} ms, bound {w_bound[0]:.6f} ms "
         f"by {w_bound[1]}")
+    log(f"poa: module D's largest chunk: {n_recs} records "
+        f"({by_type[poa.REC_DIAG]} diagonal, {by_type[poa.REC_DEL]} deletion, "
+        f"{by_type[poa.REC_INS]} insertion runs) for the {n_steps} steps; "
+        f"sweep {s_ms:.3f} ms vs plain {s_plain:.3f} ms, bound "
+        f"{s_bound[0]:.6f} ms by {s_bound[1]}; turns of 3 launches, walk "
+        f"sweep sweep walk: " + " ".join(f"{ms:.3f}" for ms in turn_ms)
+        + " ms")
     return {"poa_fwd": dict(max_abs_err=e_fwd, ms=f_ms, plain_ms=f_plain,
                             bound_ms=f_bound[0], bound_by=f_bound[1]),
             "poa_walk": dict(max_abs_err=e_walk, ms=w_ms, plain_ms=w_plain,
-                             bound_ms=w_bound[0], bound_by=w_bound[1])}
+                             bound_ms=w_bound[0], bound_by=w_bound[1]),
+            "poa_sweep": dict(max_abs_err=e_sweep, ms=s_ms, plain_ms=s_plain,
+                              bound_ms=s_bound[0], bound_by=s_bound[1])}
 
 
 # -------------------------------------------------------------- slice
@@ -573,7 +723,56 @@ KERNELS = (
      "mandalorion_tpu/poa/pallas_kernel.py:104", poa.POA_FWD_LAUNCHES),
     ("poa_walk", "mandalorion_tpu_torch/csrc/poa_walk.cu",
      "mandalorion_tpu/poa/kernels.py:308", poa.POA_WALK_LAUNCHES),
+    ("poa_sweep", "mandalorion_tpu_torch/csrc/poa_sweep.cu",
+     "mandalorion_tpu/poa/pallas_kernel.py:469", poa.POA_SWEEP_LAUNCHES),
 )
+# the device route's runs, in turns; the first two give the launch counts
+# that are reported
+ROUTE_TURNS = ("steps", "sweep", "sweep", "steps")
+
+
+def run_device_route(out_dir, inputs, walk, keep_largest) -> dict:
+    """The slice through `mando-tpu-torch --device cuda --consensus_backend
+    device`, module D's tracebacks by `walk`, with every launch counter
+    set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    poa.OBSERVER = stats = poa.RunObserver(time_kernels=True,
+                                           keep_largest=keep_largest)
+    if walk == "sweep":
+        os.environ["MANDO_POA_SWEEP"] = "1"
+    for *_names, counter in KERNELS:
+        counter.count = 0
+    t0 = time.time()
+    try:
+        port_cli.main(["-p", out_dir, *inputs, "--device", "cuda",
+                       "--consensus_backend", "device"])
+        torch.cuda.synchronize()
+    finally:
+        poa.OBSERVER = None
+        os.environ.pop("MANDO_POA_SWEEP", None)
+    seconds = time.time() - t0
+    launches = {name: counter.count for name, *_r, counter in KERNELS}
+    return dict(walk=walk, seconds=seconds, launches=launches, stats=stats,
+                peak=torch.cuda.max_memory_allocated(),
+                stages=stage_seconds(out_dir), kernel_ms=stats.kernel_ms())
+
+
+def check_route_launches(run: dict) -> None:
+    """The counters must show the walk that was asked for: in a step run
+    no sweep; in a record run a sweep for every chunk under the rank
+    limit and a step walk for the rest. dp, chain and forward always."""
+    launches, chunks = run["launches"], run["stats"].chunks
+    swept = sum(poa.chunk_walk(run["walk"], c[1]) == "sweep" for c in chunks)
+    want = dict(poa_fwd=len(chunks), poa_sweep=swept,
+                poa_walk=len(chunks) - swept)
+    got = {name: launches[name] for name in want}
+    if got != want or min(launches["dp_fused"], launches["chain_rows"],
+                          launches["poa_fwd"]) <= 0 \
+            or (run["walk"] == "sweep") != (swept > 0):
+        raise AssertionError(f"{run['walk']} run: launches {launches}, "
+                             f"expected {want} for {len(chunks)} chunks")
+
 
 
 def main() -> None:
@@ -601,8 +800,9 @@ def main() -> None:
     errs = {"dp_fused": check_dp_random(rng, device),
             "chain_rows": check_chain_random(rng, device)}
     t0 = time.time()
-    errs["poa_fwd"], errs["poa_walk"] = check_poa_cases(rng, device)
-    log(f"poa: cases (a)-(d) {time.time() - t0:.1f}s")
+    errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"] = check_poa_cases(
+        rng, device)
+    log(f"poa: cases (a)-(e) {time.time() - t0:.1f}s")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
@@ -632,54 +832,58 @@ def main() -> None:
         measured = check_first_batch(aligner, reads[:batch], device)
         del aligner, reads
 
-        port_dir = os.path.join(tmp, "port")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        poa.OBSERVER = stats = poa.RunObserver(time_kernels=True,
-                                               keep_largest=True)
-        for *_names, counter in KERNELS:
-            counter.count = 0
-        t0 = time.time()
-        port_cli.main(["-p", port_dir, *inputs, "--device", "cuda",
-                       "--consensus_backend", "device"])
-        torch.cuda.synchronize()
-        port_s = time.time() - t0
-        launches = {name: counter.count for name, *_r, counter in KERNELS}
-        poa.OBSERVER = None
-        peak = torch.cuda.max_memory_allocated()
-
-        ref, got = artifact_bytes(ref_dir), artifact_bytes(port_dir)
-        for name in ARTIFACTS:
-            if got[name] != ref[name]:
-                raise AssertionError(f"{name} differs from the host run")
+        ref = artifact_bytes(ref_dir)
+        ref_t = stage_seconds(ref_dir)
+        runs = []
+        for turn, walk in enumerate(ROUTE_TURNS):
+            out_dir = os.path.join(tmp, f"port{turn}")
+            run_ = run_device_route(out_dir, inputs, walk,
+                                    keep_largest=turn == 0)
+            got = artifact_bytes(out_dir)
+            for name in ARTIFACTS:
+                if got[name] != ref[name]:
+                    raise AssertionError(f"{name} of the {walk} run differs "
+                                         f"from the host run")
+            check_route_launches(run_)
+            runs.append(run_)
+            stats, port_t = run_["stats"], run_["stages"]
+            ms = run_["kernel_ms"]
+            log(f"slice, turn {turn}, walk by {walk}: {len(ARTIFACTS)} "
+                f"artifacts byte-identical; launches {run_['launches']}; "
+                f"D_define {port_t['D_define']:.2f} s; forward kernel "
+                f"{ms['poa_fwd']:.1f} ms, {walk} walk kernel "
+                f"{ms['poa_sweep' if walk == 'sweep' else 'poa_walk']:.1f} "
+                f"ms by CUDA events summed over the run; host fill_arrays "
+                f"{stats.fill_s * 1e3:.1f} ms, "
+                f"{'apply_runs' if walk == 'sweep' else 'apply_steps'} "
+                f"{stats.apply_s * 1e3:.1f} ms; wall {run_['seconds']:.1f}s")
+        by_steps, by_records = runs[0], runs[1]
+        launches = dict(by_steps["launches"],
+                        poa_sweep=by_records["launches"]["poa_sweep"])
         for name, count in launches.items():
             if count <= 0:
                 raise AssertionError(f"kernel {name} was never launched on "
-                                     f"the main path")
-        ref_t, port_t = stage_seconds(ref_dir), stage_seconds(port_dir)
-        log(f"slice: {len(ARTIFACTS)} artifacts byte-identical; launches "
-            f"{launches}; peak device memory {peak} bytes")
+                                     f"its path")
+        port_t, stats = by_steps["stages"], by_steps["stats"]
+        log(f"slice: peak device memory {by_steps['peak']} bytes by "
+            f"steps, {by_records['peak']} by records")
         log(f"slice: APDFQ stages (index build included) "
             f"{n_reads / sum(port_t.values()):.1f} reads/s with modules A "
             f"and D on the card vs {n_reads / sum(ref_t.values()):.1f} on "
             f"the host route; module A "
             f"{n_reads / port_t['A_alignment']:.1f} vs "
             f"{n_reads / ref_t['A_alignment']:.1f} reads/s; wall "
-            f"{port_s:.1f}s vs {host_s:.1f}s (host: a fresh interpreter)")
+            f"{by_steps['seconds']:.1f}s vs {host_s:.1f}s (host: a "
+            f"fresh interpreter)")
         log("slice: stage seconds, card | host: " + ", ".join(
             f"{k} {port_t[k]:.2f} | {ref_t[k]:.2f}" for k in ref_t))
 
-        kernel_ms = stats.kernel_ms()
         classes = sorted({(c[1], c[2]) for c in stats.chunks})
         sizes = [c[0] for c in stats.chunks]
         log(f"module D: {stats.rounds} rounds, {len(stats.chunks)} chunks, "
             f"problems a chunk {min(sizes)}..{max(sizes)} (mean "
             f"{sum(sizes) / len(sizes):.1f}), (n_cap, W) classes {classes}; "
-            f"forward kernel {kernel_ms['poa_fwd']:.1f} ms and walk kernel "
-            f"{kernel_ms['poa_walk']:.1f} ms by CUDA events summed over the "
-            f"run, host fill_arrays {stats.fill_s * 1e3:.1f} ms, "
-            f"apply_steps {stats.apply_s * 1e3:.1f} ms; D_define "
-            f"{port_t['D_define']:.2f} s | {ref_t['D_define']:.2f} s")
+            f"host route D_define {ref_t['D_define']:.2f} s")
         measured.update(check_poa_main_path(stats.largest, device))
 
     for banned in ("jax", "mandalorion_tpu"):

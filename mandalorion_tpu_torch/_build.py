@@ -48,6 +48,9 @@ _SIGNATURES = {
     # nn, ends, ql, hpack, opack, d1p, d2p, offs, endcol, buf, ks, n, n_cap,
     # W, max_steps, stream
     "mando_poa_walk": [_P] * 11 + [_I64] + [_I32] * 3 + [_P],
+    # nn, ends, ql, hpack, opack, d1p, d2p, offs, endcol, recs, counts, n,
+    # n_cap, W, max_rec, stream
+    "mando_poa_sweep": [_P] * 11 + [_I64] + [_I32] * 3 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

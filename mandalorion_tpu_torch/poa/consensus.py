@@ -176,11 +176,11 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     loci the jobs came from, grouped by params (the adaptive -S analogue
     can split the band). Both produce the same consensi."""
     import dataclasses
+    import os
     backend = backend or "native"
     if backend not in ("native", "device"):
         raise ValueError(f"unknown consensus backend {backend!r}")
     if backend == "native":
-        import os
         from concurrent.futures import ThreadPoolExecutor
         from mandalorion_tpu_torch.native import native_poa_consensus
         pending = [j for j in jobs if j.result is None]
@@ -200,6 +200,9 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
                 run(job)
         return [(job.result, job.names) for job in jobs]
     from mandalorion_tpu_torch.poa.kernels import poa_consensus_batch
+    # MANDO_POA_SWEEP=1 (the reference's gate, read here and nowhere else):
+    # tracebacks leave the device as run-compressed records
+    walk = "sweep" if os.environ.get("MANDO_POA_SWEEP") == "1" else "steps"
     by_params: dict = {}
     for i, job in enumerate(jobs):
         if job.result is None:
@@ -208,7 +211,7 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     for ids in by_params.values():
         params = jobs[ids[0]].params
         consensi = poa_consensus_batch([jobs[i].oriented for i in ids],
-                                       params, device)
+                                       params, device, walk)
         for i, cons in zip(ids, consensi):
             jobs[i].result = (_decode(cons) if len(cons)
                               else jobs[i].fallback)

@@ -9,15 +9,23 @@ device and only the alignment paths come back:
     fill_arrays (C) -> forward (poa_forward) -> walk (poa_walk)
       -> apply_steps (C)
 
+or, with walk="sweep" (counterpart of poa/pallas_kernel.py's reverse-sweep
+walk), the path leaves the device run-compressed, one record per diagonal
+step, deleted node or whole insertion run, and C expands it:
+
+    ... -> forward (poa_forward) -> walk (poa_sweep) -> apply_runs (C)
+
 Two implementations of each device function, side by side:
 
-- `poa_forward_plain` / `poa_walk_plain`: plain PyTorch, batched over
-  problems with a Python loop over rank rows / walk steps;
-- csrc/poa_fwd.cu / csrc/poa_walk.cu: the hand-written CUDA kernels.
+- `poa_forward_plain` / `poa_walk_plain` / `poa_sweep_plain`: plain
+  PyTorch, batched over problems with a Python loop over rank rows / walk
+  steps / walk transitions;
+- csrc/poa_fwd.cu / csrc/poa_walk.cu / csrc/poa_sweep.cu: the
+  hand-written CUDA kernels.
 
-`poa_forward` and `poa_walk` dispatch on the tensors' device: CPU tensors
-take the plain version, CUDA tensors the kernel (never the other way
-round).
+`poa_forward`, `poa_walk` and `poa_sweep` dispatch on the tensors' device:
+CPU tensors take the plain version, CUDA tensors the kernel (never the
+other way round).
 
 Gap model: abPOA's convex dual-affine (gap_open/gap_extend +
 gap_open2/gap_extend2): two deletion states carried across graph edges,
@@ -67,6 +75,18 @@ BYTES_PER_CELL = 28
 
 POA_FWD_LAUNCHES = LaunchCounter("poa_fwd")
 POA_WALK_LAUNCHES = LaunchCounter("poa_walk")
+POA_SWEEP_LAUNCHES = LaunchCounter("poa_sweep")
+
+# run-compressed walk records, in emission order (path end to path start):
+#   rec0 = qi_hi | type << 16, rec1 = qi_lo | (rank + 2) << 16
+#   type 0 DIAG: one (qi_hi, rank) step
+#   type 1 DEL:  one (-1, rank) step
+#   type 2 INS:  steps (qi, -1) for qi = qi_hi down to qi_lo
+REC_DIAG, REC_DEL, REC_INS = 0, 1, 2
+WALKS = ("steps", "sweep")
+# rec1 holds rank + 2 in its upper half and the C consumer decodes it with a
+# signed shift: the sweep serves row caps with n_cap + 2 below this
+SWEEP_RANK_LIMIT = 1 << 15
 
 Mats = Tuple[torch.Tensor, ...]  # hpack, opack, d1p, d2p, offs, endcol
 
@@ -74,10 +94,12 @@ Mats = Tuple[torch.Tensor, ...]  # hpack, opack, d1p, d2p, offs, endcol
 class RunObserver:
     """What a caller asks `poa_consensus_batch` to record while this
     object is installed as `OBSERVER`: rounds, chunk shapes and host
-    seconds in the C staging calls, always; with `time_kernels` a CUDA
-    event pair around every kernel launch (read after a synchronise by
-    `kernel_ms`); the numpy arrays of the chunks of `keep_rounds` as
-    `kept` = [(round, W, l_cap, arrays)]; with `keep_largest` the chunk
+    seconds in the C staging calls (`apply_s` covers apply_steps and
+    apply_runs alike), always; with `time_kernels` a CUDA event pair
+    around every kernel launch (read after a synchronise by `kernel_ms`,
+    the walk under the key of the kernel that ran); the numpy arrays of
+    the chunks of `keep_rounds` as `kept` = [(round, W, l_cap, arrays)];
+    with `keep_largest` the chunk
     of most DP cells as `largest` = (arrays, W, l_cap, params), so that a
     check can replay real chunks."""
 
@@ -92,7 +114,7 @@ class RunObserver:
         self.chunks: List[Tuple[int, int, int, int]] = []  # B, n_cap, W, rows
         self.fill_s = 0.0
         self.apply_s = 0.0
-        self.events = {"poa_fwd": [], "poa_walk": []}
+        self.events = {"poa_fwd": [], "poa_walk": [], "poa_sweep": []}
 
     def chunk(self, k: int, arrays, W: int, l_cap: int,
               params: PoaParams) -> None:
@@ -468,6 +490,38 @@ def poa_forward(base: torch.Tensor, preds: torch.Tensor, nn: torch.Tensor,
 
 # --------------------------------------------------------------- walk
 
+def _cell_reader(offs: torch.Tensor):
+    """cell(mat, t, j): mat (B, rows, W) at matrix row t (B,), ABSOLUTE
+    column j (B,), as int64; 0 outside the row's stored window."""
+    B, rows = offs.shape
+    rows_b = torch.arange(B, device=offs.device)
+    offs64 = offs.long()
+
+    def cell(mat, t, j):
+        W = mat.shape[2]
+        tc = t.clamp(0, rows - 1)
+        rel = j - offs64[rows_b, tc]
+        ok = (rel >= 0) & (rel < W)
+        return torch.where(ok, mat[rows_b, tc, rel.clamp(0, W - 1)].long(),
+                           0)
+
+    return cell
+
+
+def _end_rank(nn: torch.Tensor, ends: torch.Tensor,
+              endcol: torch.Tensor) -> torch.Tensor:
+    """Matrix row a walk starts from: the first maximum of H[t, qlen] over
+    real end ranks 1 <= t <= nn, 0 when there is none. (B,) int64."""
+    B, rows = endcol.shape
+    dev = nn.device
+    t_idx = torch.arange(rows, device=dev)[None, :]
+    end_mask = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                          ends.bool()], dim=1) & (t_idx <= nn.long()[:, None])
+    cand = torch.where(end_mask, endcol.long(), NEG - 1)
+    best = cand.amax(dim=1, keepdim=True)
+    return torch.where(cand == best, t_idx, rows).amin(dim=1)
+
+
 def poa_walk_plain(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
                    mats: Mats, l_cap: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -476,27 +530,10 @@ def poa_walk_plain(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
     iteration per walk step of the longest path."""
     hpack, opack, d1p, d2p, offs, endcol = mats
     dev = nn.device
-    B, rows, W = hpack.shape
-    n_cap = rows - 1
-    max_steps = n_cap + l_cap + 2
-    rows_b = torch.arange(B, device=dev)
-    offs64 = offs.long()
-
-    def cell(mat, t, j):
-        """mat at matrix row t, ABSOLUTE column j (0 outside the window)."""
-        tc = t.clamp(0, n_cap)
-        rel = j - offs64[rows_b, tc]
-        ok = (rel >= 0) & (rel < W)
-        return torch.where(ok, mat[rows_b, tc, rel.clamp(0, W - 1)].long(),
-                           0)
-
-    # end rank: first max of H[t, qlen] over real end ranks <= nn
-    t_idx = torch.arange(rows, device=dev)[None, :]
-    end_mask = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                          ends.bool()], dim=1) & (t_idx <= nn.long()[:, None])
-    cand = torch.where(end_mask, endcol.long(), NEG - 1)
-    best = cand.amax(dim=1, keepdim=True)
-    r = torch.where(cand == best, t_idx, rows).amin(dim=1)
+    B, rows, _W = hpack.shape
+    max_steps = rows - 1 + l_cap + 2
+    cell = _cell_reader(offs)
+    r = _end_rank(nn, ends, endcol)
 
     # states: 0 H (final op), 1 H0 (pre-insertion op), 2 D1, 3 D2,
     # 4 INS (emitting an insertion run down to column tgt)
@@ -558,6 +595,18 @@ def poa_walk_plain(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
     return buf, k.to(torch.int32)
 
 
+def _check_walk_args(nn, ends, ql, mats: Mats) -> None:
+    hpack, opack, d1p, d2p, offs, endcol = mats
+    if hpack.dim() != 3:
+        raise ValueError("hpack (B, n_cap + 1, W) expected")
+    B, rows, W = hpack.shape
+    _check_i32({"nn": (nn, (B,)), "ends": (ends, (B, rows - 1)),
+                "ql": (ql, (B,)), "hpack": (hpack, (B, rows, W)),
+                "opack": (opack, (B, rows, W)), "d1p": (d1p, (B, rows, W)),
+                "d2p": (d2p, (B, rows, W)), "offs": (offs, (B, rows)),
+                "endcol": (endcol, (B, rows))}, nn.device)
+
+
 def _poa_walk_cuda(nn, ends, ql, mats: Mats, l_cap: int):
     lib = _build.load_kernels()
     hpack, opack, d1p, d2p, offs, endcol = mats
@@ -592,20 +641,173 @@ def poa_walk(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
     (qi == -1: node deleted; rank == -1: query base inserted). CPU
     tensors run `poa_walk_plain`, CUDA tensors the csrc/poa_walk.cu
     kernel, on the current stream with no synchronisation."""
-    hpack, opack, d1p, d2p, offs, endcol = mats
-    if hpack.dim() != 3:
-        raise ValueError("hpack (B, n_cap + 1, W) expected")
-    B, rows, W = hpack.shape
-    _check_i32({"nn": (nn, (B,)), "ends": (ends, (B, rows - 1)),
-                "ql": (ql, (B,)), "hpack": (hpack, (B, rows, W)),
-                "opack": (opack, (B, rows, W)), "d1p": (d1p, (B, rows, W)),
-                "d2p": (d2p, (B, rows, W)), "offs": (offs, (B, rows)),
-                "endcol": (endcol, (B, rows))}, nn.device)
+    _check_walk_args(nn, ends, ql, mats)
     if l_cap < 0:
         raise ValueError(f"l_cap={l_cap}")
     if nn.device.type == "cpu":
         return poa_walk_plain(nn, ends, ql, mats, l_cap)
     return _poa_walk_cuda(nn, ends, ql, mats, l_cap)
+
+
+# -------------------------------------------------------------- sweep
+
+def sweep_record_cap(n_cap: int) -> int:
+    """Records a problem's walk can emit at most (two a matrix row), with
+    the reference's slack: the second dimension of `poa_sweep`'s recs."""
+    return 2 * n_cap + 8
+
+
+def chunk_walk(walk: str, n_cap: int) -> str:
+    """The walk a chunk of row cap n_cap takes when the caller asked for
+    `walk`: the sweep serves only n_cap + 2 < SWEEP_RANK_LIMIT; a chunk
+    over that takes the step walk."""
+    if walk not in WALKS:
+        raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
+    return ("sweep" if walk == "sweep" and n_cap + 2 < SWEEP_RANK_LIMIT
+            else "steps")
+
+
+def poa_sweep_plain(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
+                    mats: Mats) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch record walk; see `poa_sweep` for the contract. The
+    transition table of the reference's `_poa_walk_kernel` as batched
+    selects, one loop iteration per transition of the longest path: every
+    walker follows its own path, so no row is visited that no walker is
+    in."""
+    hpack, opack, d1p, d2p, offs, endcol = mats
+    dev = nn.device
+    B, rows, _W = hpack.shape
+    maxrec = sweep_record_cap(rows - 1)
+    cell = _cell_reader(offs)
+
+    # states: 0 H (final op), 1 H0 (pre-insertion op), 2 D1, 3 D2; an
+    # insertion run is one record, so there is no INS state
+    r = _end_rank(nn, ends, endcol)
+    j = ql.long().clone()
+    st = torch.zeros(B, dtype=torch.int64, device=dev)
+    k = torch.zeros_like(st)
+    done = ((r <= 0) & (j <= 0)) | (r < 0)
+    recs = torch.zeros((B, maxrec, 2), dtype=torch.int32, device=dev)
+    # a walker leaves its row within three transitions (insertion run ->
+    # H0 -> deletion entry -> deletion), which bounds the loop on any input
+    for _ in range(3 * rows):
+        active = ~done & (k < maxrec)
+        if not bool(active.any()):
+            break
+        hv = cell(hpack, r, j)
+        ov = cell(opack, r, j)
+        orig1v = ov & 0xFFFF
+        orig2v = (ov >> 16) & 0xFFFF      # unsigned: origins reach 65535
+        dptr = torch.where(st == 2, cell(d1p, r, j), cell(d2p, r, j))
+
+        h_active = st <= 1
+        at_row0 = r == 0
+        opv = torch.where(st == 1, (hv >> 3) & 7, hv & 7)
+        node0v = (hv >> 6) - 2
+        h_is_diag = ~at_row0 & (opv == 0)
+        h_is_ins = ~at_row0 & ((opv == 1) | (opv == 3))
+        d_pr = dptr >> 1
+        d_ext = (dptr & 1) == 1
+
+        # one record per transition; an H deletion entry emits nothing.
+        # An insertion run goes from column j - 1 down to its origin (the
+        # boundary row's run to column 0) and j jumps to the run's end
+        run_lo = torch.where(at_row0, 0, torch.where(opv == 1, orig1v,
+                                                     orig2v))
+        emit_diag = h_active & h_is_diag
+        emit_del = ~h_active
+        emit_ins = h_active & (at_row0 | h_is_ins) & (j >= 1)
+        do_emit = active & (emit_diag | emit_del | emit_ins)
+        rtype = torch.where(emit_del, REC_DEL,
+                            torch.where(emit_diag, REC_DIAG, REC_INS))
+        rec0 = torch.where(emit_ins | emit_diag, j - 1, 0) | (rtype << 16)
+        rec1 = torch.where(emit_ins, run_lo, 0) \
+            | ((torch.where(emit_ins, -1, r - 1) + 2) << 16)
+        sel = do_emit.nonzero()[:, 0]
+        recs[sel, k[sel]] = _wrap32(torch.stack([rec0, rec1], dim=1)[sel])
+        k = k + do_emit.long()
+
+        st_h = torch.where(
+            at_row0 | h_is_diag, 0,
+            torch.where(h_is_ins, 1, torch.where(opv == 2, 2, 3)))
+        r_h = torch.where(h_is_diag, node0v, r)
+        j_h = torch.where(at_row0, 0,
+                          torch.where(h_is_diag, j - 1,
+                                      torch.where(h_is_ins, run_lo, j)))
+        st_n = torch.where(h_active, st_h, torch.where(d_ext, st, 0))
+        r_n = torch.where(h_active, r_h, d_pr)
+        j_n = torch.where(h_active, j_h, j)
+        st = torch.where(active, st_n, st)
+        r = torch.where(active, r_n, r)
+        j = torch.where(active, j_n, j)
+        done = done | (active & (((r <= 0) & (j <= 0)) | (r < 0)))
+    return recs, k.to(torch.int32)
+
+
+def _poa_sweep_cuda(nn, ends, ql, mats: Mats):
+    lib = _build.load_kernels()
+    hpack, opack, d1p, d2p, offs, endcol = mats
+    dev = nn.device
+    B, rows, W = hpack.shape
+    maxrec = sweep_record_cap(rows - 1)
+    # entries at and beyond counts[b] are never written
+    recs = torch.empty((B, maxrec, 2), dtype=torch.int32, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        POA_SWEEP_LAUNCHES.count += 1
+        rc = lib.mando_poa_sweep(
+            nn.data_ptr(), ends.data_ptr(), ql.data_ptr(), hpack.data_ptr(),
+            opack.data_ptr(), d1p.data_ptr(), d2p.data_ptr(),
+            offs.data_ptr(), endcol.data_ptr(), recs.data_ptr(),
+            counts.data_ptr(), B, rows - 1, W, maxrec, stream)
+    _build.check(rc, "mando_poa_sweep")
+    return recs, counts
+
+
+def poa_sweep(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
+              mats: Mats) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Traceback walk over `poa_forward`'s matrices for B problems, as
+    run-compressed records: the same paths as `poa_walk`, one record per
+    diagonal step, deleted node or whole insertion run.
+
+    Arguments as `poa_walk`'s; n_cap + 2 must stay below
+    SWEEP_RANK_LIMIT (`chunk_walk`). Returns recs (B, 2 * n_cap + 8, 2)
+    int32 and counts (B,) int32: recs[b, :counts[b]] are problem b's
+    (rec0, rec1) pairs
+    from the path's end to its start, packed as REC_DIAG / REC_DEL /
+    REC_INS above, the stream `NativePoaGraph.apply_runs` and
+    `expand_walk_records` take. Entries at and beyond counts[b] are
+    unspecified. CPU tensors run `poa_sweep_plain`, CUDA tensors the
+    csrc/poa_sweep.cu kernel, on the current stream with no
+    synchronisation."""
+    _check_walk_args(nn, ends, ql, mats)
+    n_cap = mats[0].shape[1] - 1
+    if chunk_walk("sweep", n_cap) != "sweep":
+        raise ValueError(f"n_cap={n_cap}: a record's rank field holds "
+                         f"n_cap + 2 < {SWEEP_RANK_LIMIT} only")
+    if nn.device.type == "cpu":
+        return poa_sweep_plain(nn, ends, ql, mats)
+    return _poa_sweep_cuda(nn, ends, ql, mats)
+
+
+def expand_walk_records(recs: np.ndarray, k: int) -> np.ndarray:
+    """One problem's records (recs[:k], emission order) as `poa_walk`'s
+    buf contract: (steps, 2) int32 (qi, rank) steps in REVERSE order. What
+    the C consumer does inside `apply_runs`, for checks."""
+    rec0 = np.asarray(recs[:k, 0], np.int64)
+    rec1 = np.asarray(recs[:k, 1], np.int64)
+    rtype = (rec0 >> 16) & 3
+    qi_hi, qi_lo = rec0 & 0xFFFF, rec1 & 0xFFFF
+    rank = (rec1 >> 16) - 2
+    is_run = rtype == REC_INS
+    n = np.where(is_run, np.maximum(qi_hi - qi_lo + 1, 0), 1)
+    src = np.repeat(np.arange(k), n)
+    within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    qi = np.where(is_run[src], qi_hi[src] - within,
+                  np.where(rtype[src] == REC_DIAG, qi_hi[src], -1))
+    rk = np.where(is_run[src], -1, rank[src])
+    return np.stack([qi, rk], axis=1).astype(np.int32).reshape(-1, 2)
 
 
 # ----------------------------------------------------------- dispatch
@@ -614,12 +816,16 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
                    ends: np.ndarray, qq: np.ndarray, ql: np.ndarray,
                    W: int, l_cap: int, params: PoaParams,
                    device: torch.device,
-                   observer: Optional[RunObserver] = None
-                   ) -> Tuple[np.ndarray, np.ndarray]:
+                   observer: Optional[RunObserver] = None,
+                   walk: str = "steps") -> Tuple[np.ndarray, np.ndarray]:
     """The device part of one chunk: packed rank-space numpy arrays in,
-    host (buf, ks) reverse-order step arrays out. Forward and walk run
-    back to back on one stream; fetching buf/ks is the chunk's one
+    host arrays out: (buf, ks) reverse-order steps with walk="steps",
+    (recs, counts) run-compressed records with walk="sweep" (the caller
+    picks per chunk with `chunk_walk`). Forward and walk run back to back
+    on one stream; fetching the walk's two outputs is the chunk's one
     synchronisation."""
+    if walk not in WALKS:
+        raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
     t_base, t_preds, t_nn, t_ends, t_qq, t_ql = problems_from_numpy(
         base, preds, nn, ends, qq, ql, device)
     timed = observer is not None and observer.time_kernels \
@@ -631,12 +837,16 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
     mats = poa_forward(t_base, t_preds, t_nn, t_qq, t_ql, params, W)
     if timed:
         marks[1].record()
-    buf, ks = poa_walk(t_nn, t_ends, t_ql, mats, l_cap)
+    if walk == "sweep":
+        rows, counts = poa_sweep(t_nn, t_ends, t_ql, mats)
+    else:
+        rows, counts = poa_walk(t_nn, t_ends, t_ql, mats, l_cap)
     if timed:
         marks[2].record()
         observer.events["poa_fwd"].append((marks[0], marks[1]))
-        observer.events["poa_walk"].append((marks[1], marks[2]))
-    return buf.cpu().numpy(), ks.cpu().numpy()
+        observer.events["poa_sweep" if walk == "sweep" else "poa_walk"
+                        ].append((marks[1], marks[2]))
+    return rows.cpu().numpy(), counts.cpu().numpy()
 
 
 def _chunk_items(n_cap: int, W: int) -> int:
@@ -767,6 +977,15 @@ class NativePoaGraph:
         self._lib.poa_graph_apply_c(self._h, qa.ctypes.data,
                                     b.ctypes.data, int(k))
 
+    def apply_runs(self, q: np.ndarray, recs: np.ndarray, k: int) -> None:
+        """Thread query q along `poa_sweep`'s run-compressed records
+        (recs[:k] of one problem, emission order), which C expands to the
+        step walk's exact step sequence."""
+        qa = np.ascontiguousarray(q, np.uint8)
+        r = np.ascontiguousarray(recs[:k], np.int32)
+        self._lib.poa_graph_apply_runs_c(self._h, qa.ctypes.data,
+                                         r.ctypes.data, int(k))
+
     def consensus(self) -> np.ndarray:
         out = np.empty(self.n_nodes() + 1, np.uint8)
         n = self._lib.poa_graph_consensus_handle_c(self._h,
@@ -775,15 +994,17 @@ class NativePoaGraph:
 
 
 def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
-                        params: Optional[PoaParams] = None, device="cuda"
-                        ) -> List[np.ndarray]:
+                        params: Optional[PoaParams] = None, device="cuda",
+                        walk: str = "steps") -> List[np.ndarray]:
     """Graph-POA consensus of many isoforms at once: reads are threaded in
     lockstep rounds: round k aligns the k-th read of every still-growing
     graph in batched device dispatches on `device` (the per-locus isoform
     axis, mirroring the reference's one-abpoa-process-per-isoform at
     SDC.py:915-919). Graphs live in C++ between rounds (NativePoaGraph),
     so the per-round staging never touches Python adjacency lists and the
-    walk's steps go straight to C.
+    walk's steps go straight to C. With walk="sweep" every chunk that
+    `chunk_walk` lets through leaves the device as run-compressed records
+    (`poa_sweep`, `apply_runs`); the consensi are the same either way.
 
     A `RunObserver` installed as `OBSERVER` sees the call's rounds,
     chunks and timings; without one nothing is recorded."""
@@ -801,6 +1022,7 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
         queries = [seq_sets[i][k] for i in live]
         nodes = [graphs[i].n_nodes() for i in live]
         n_cap = _rank_cap(max(nodes))
+        round_walk = chunk_walk(walk, n_cap)
         l_cap = _pow2_at_least(_check_query_lengths(queries))
         p_cap = _pow2_at_least(
             max(graphs[i].max_preds() for i in live), floor=4)
@@ -832,12 +1054,15 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                     obs.fill_s += time.perf_counter() - t0
                     obs.chunk(k, (base, preds, nn, ends, qq, ql), W, l_cap,
                               params)
-                buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, W,
-                                         l_cap, params, device, obs)
+                rows, counts = dispatch_chunk(base, preds, nn, ends, qq, ql,
+                                              W, l_cap, params, device, obs,
+                                              round_walk)
                 t0 = time.perf_counter()
                 for bi, pos in enumerate(batch):
-                    graphs[live[pos]].apply_steps(queries[pos], buf[bi],
-                                                  int(ks[bi]))
+                    g = graphs[live[pos]]
+                    apply = (g.apply_runs if round_walk == "sweep"
+                             else g.apply_steps)
+                    apply(queries[pos], rows[bi], int(counts[bi]))
                 if obs is not None:
                     obs.apply_s += time.perf_counter() - t0
     out = [g.consensus() for g in graphs]

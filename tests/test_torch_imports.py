@@ -141,7 +141,7 @@ def test_build_is_keyed_by_sources_and_flags(monkeypatch):
     path = _build.library_path()
     assert path.startswith(runtime.kernel_build_dir())
     assert sorted(os.path.basename(s) for s in _build.sources()) == \
-        ["chain.cu", "dp.cu", "poa_fwd.cu", "poa_walk.cu"]
+        ["chain.cu", "dp.cu", "poa_fwd.cu", "poa_sweep.cu", "poa_walk.cu"]
     for flag in ("arch=compute_90a,code=sm_90a", "-fmad=false", "-O3"):
         assert flag in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
