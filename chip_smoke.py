@@ -23,19 +23,29 @@ line is printed only when every phase passed:
      16 isoforms x 20 reads x about 2 kb at the first, a middle and the
      last round, adaptive band; (b) the same chunks under the static
      band; (c) a graph with a predecessor more than 256 rows back (one
-     read carries a 320-base insertion); (d) one isoform whose queries
-     are longer than 32,768 bases, with a 40-base insertion behind column
-     32,768: the consensus must equal the native C++ engine's, and its
-     graphs are over the record walk's rank limit, so asked for records
-     it must take the step walk, by the launch counters; (e) a graph
-     under that limit whose query carries 30-base insertions, the last
-     of them behind column 32,768; and, after the slice, the largest
-     chunk module D dispatched in it. On every chunk the record walk's
-     records, expanded, must be the step walk's steps.
+     read carries a 320-base insertion), and a second graph at W = 256
+     with predecessors both the row before and 101 rows back (inside and
+     beyond the forward's shared-memory ring, and beyond the step walk's
+     staged tile) whose last query also carries a deletion and an
+     insertion run; (d) one isoform whose queries are longer than 32,768
+     bases, with a 40-base insertion behind column 32,768: the consensus
+     must equal the native C++ engine's, and its graphs are over the
+     record walk's rank limit, so asked for records it must take the
+     step walk, by the launch counters; (e) a graph under that limit
+     whose query carries 30-base insertions, the last of them behind
+     column 32,768; (f) the isoforms of (a) under four bands in turns in
+     one call: one chunk a round, consensi against the native engine at
+     each band, and each problem's matrices against a launch that holds
+     its band alone; and, after the slice, the largest chunk module D
+     dispatched in it. On every chunk the record walk's records,
+     expanded, must be the step walk's steps.
    Times come from CUDA events at the main path's own shapes: the first
-   read batch for dp and chain, module D's largest chunk for the POA
-   kernels. Each kernel's bound is the larger of its bytes over the
-   card's memory rate and its operations over the card's ALU rate.
+   read batch for dp and chain, module D's largest chunk (a whole round:
+   every isoform still growing, whatever its band) for the POA kernels;
+   the forward and the step walk are also timed on that chunk's five
+   tallest problems alone. Each kernel's bound is the larger of its
+   bytes over the card's memory rate and its operations over the card's
+   ALU rate.
 4. slice: make_dataset(n_genes=40, n_reads_per_gene=500,
    genome_len=20_000_000, seed=0), 20,000 reads on a 20 Mbp genome,
    through `mando-tpu-torch --device cuda --consensus_backend device`
@@ -48,7 +58,8 @@ line is printed only when every phase passed:
    counters, set to 0 before each run, must show dp, chain, forward and
    step walk in the step runs, and in the record runs one poa_sweep
    launch for every chunk under the rank limit and a step walk for the
-   rest.
+   rest; the forward once a chunk, a chunk being a round of one width
+   class with more than six problems in the fullest.
 5. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -91,6 +102,14 @@ WIDTH_CLASSES = ((1, 127), (128, 255), (256, 511), (512, 1023), (1024, 2303))
 # the POA cases (a)/(b), (c) and (d) of the module docstring
 POA_SETS = dict(n_iso=16, n_reads=20, length=2000, err=0.03)
 POA_LONG_EDGE = dict(length=2000, insert=320, band=340)
+# W stays 256 under this band, where the forward keeps RING_ROWS rows in
+# shared memory and the step walk stages TILE_ROWS rows: the insertion puts a
+# predecessor beyond both
+POA_RING = dict(length=2000, insert=100, band=120, deleted=5, inserted=7)
+RING_ROWS, TILE_ROWS = 16, 64
+# case (f): the bands of POA_SETS' isoforms, in turns: one narrower and one
+# wider than both its neighbours
+POA_MIXED_BANDS = (30, 16, 24, 40)
 # `at` - 100 >= 32768: the insertion's origin column needs 16 bits
 POA_LONG_QUERY = dict(length=33_000, insert=40, at=32_900, band=340)
 # a graph of `length` nodes stays under the record walk's rank limit; the
@@ -400,24 +419,28 @@ def noisy_copy(rng, base: np.ndarray, err: float) -> np.ndarray:
     return pairs[keep]
 
 
-def poa_problem_tensors(arrays, device):
-    base, preds, nn, ends, qq, ql = poa.problems_from_numpy(*arrays, device)
-    return (base, preds, nn, qq, ql), (nn, ends, ql)
+def poa_problem_tensors(arrays, params, W, device):
+    """A chunk's numpy arrays as (the arguments of poa_forward and
+    poa_forward_plain, (nn, ends, ql) for the walks)."""
+    base, preds, nn, ends, qq, ql, band = poa.problems_from_numpy(*arrays,
+                                                                  device)
+    return (base, preds, nn, qq, ql, params, W, band), (nn, ends, ql)
 
 
 def check_poa_chunk(what, arrays, params, W, l_cap, device,
                     sweep_only=False):
     """Forward, step walk and record walk kernels against their plain
-    versions on one chunk: whole matrices (rows past nn[b] are zero on
-    both sides), buf[:ks] and ks, recs[:counts] and counts; and the
-    records, expanded on the host, against the step kernel's steps.
+    versions on one chunk: the matrices' rows 0..nn[b] (the kernel leaves
+    the rows past nn[b] unwritten, `clear_rows_past`), buf[:ks] and ks,
+    recs[:counts] and counts; and the records, expanded on the host,
+    against the step kernel's steps.
     With sweep_only the plain record walk reads the kernel's matrices and
     neither the forward nor the step walk is compared with its plain
     version (a plain walk costs a millisecond a step). Returns the
     measured largest differences (forward, walk, sweep); raises unless
     all are 0."""
-    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
-    mats = poa.poa_forward(*fwd_in, params, W)
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    mats = poa.poa_forward(*fwd_in)
     buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
     recs, counts = poa.poa_sweep(nn, ends, ql, mats)
     torch.cuda.synchronize()
@@ -429,8 +452,8 @@ def check_poa_chunk(what, arrays, params, W, l_cap, device,
     e_fwd = e_walk = 0
     want = mats
     if not sweep_only:
-        want = poa.poa_forward_plain(*fwd_in, params, W)
-        e_fwd = max_abs_err(mats, want)
+        want = poa.poa_forward_plain(*fwd_in)
+        e_fwd = max_abs_err(poa.clear_rows_past(mats, nn), want)
         want_buf, want_ks = poa.poa_walk_plain(nn, ends, ql, want, l_cap)
         e_walk = max_abs_err([ks, live(buf, want_ks)],
                              [want_ks, live(want_buf, want_ks)])
@@ -455,19 +478,116 @@ def check_poa_chunk(what, arrays, params, W, l_cap, device,
     return e_fwd, e_walk, e_sweep
 
 
-def capture_consensus(sets, params, device, rounds):
+def capture_consensus(sets, params, device, rounds, bands=None):
     """poa_consensus_batch on the card, keeping the chunks of `rounds`:
     (consensi, [(round, W, l_cap, arrays)])."""
     poa.OBSERVER = obs = poa.RunObserver(keep_rounds=rounds)
     try:
-        consensi = poa.poa_consensus_batch(sets, params, device)
+        consensi = poa.poa_consensus_batch(sets, params, device, bands=bands)
     finally:
         poa.OBSERVER = None
     return consensi, obs.kept
 
 
+def check_ring_and_tile(rng, device):
+    """Case (c), second graph: predecessors inside and beyond the forward's
+    shared-memory ring in one problem at W = 256, every round against the
+    plain versions; the last round's path must leave the step walk's tile
+    every way there is: deletions, an insertion run, a branch to a
+    predecessor beyond the tile."""
+    cfg = POA_RING
+    true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
+    half = cfg["length"] // 2
+    with_ins = np.concatenate([true[:half],
+                               rng.integers(0, 4, cfg["insert"]).astype(
+                                   np.uint8), true[half:]])
+    last = noisy_copy(rng, true, 0.02)
+    last = np.concatenate([last[:300], last[300 + cfg["deleted"]:900],
+                           rng.integers(0, 4, cfg["inserted"]).astype(
+                               np.uint8), last[900:]])
+    reads = [true, with_ins, noisy_copy(rng, true, 0.02),
+             noisy_copy(rng, with_ins, 0.02), last]
+    params = PoaParams(band=cfg["band"], adaptive=True)
+    consensi, kept = capture_consensus([reads], params, device,
+                                       range(1, len(reads)))
+    if consensi[0].tolist() != native_poa_consensus(reads, params).tolist():
+        raise AssertionError("(c) ring graph: consensus on the card != "
+                             "native engine")
+    errs = []
+    for k, W, l_cap, arrays in kept:
+        preds, n = arrays[1][0], int(arrays[2][0])
+        back = np.where(preds[:n] >= 1,
+                        np.arange(1, n + 1)[:, None] - preds[:n], 0)
+        if k >= 2 and not (W == 256 and (back == 1).any()
+                           and back.max() > max(RING_ROWS, TILE_ROWS)):
+            raise AssertionError(f"(c) ring graph, round {k}: W {W}, "
+                                 f"back-distances to {back.max()}")
+        errs.append(check_poa_chunk(
+            f"(c) ring graph, round {k}, predecessors 1..{back.max()} rows "
+            f"back", arrays, params, W, l_cap, device))
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    buf, ks = poa.poa_walk(nn, ends, ql, poa.poa_forward(*fwd_in), l_cap)
+    steps = buf[0, :int(ks[0])].cpu().numpy()
+    diag = steps[(steps[:, 0] >= 0) & (steps[:, 1] >= 0), 1]
+    n_del, n_ins = int((steps[:, 0] < 0).sum()), int((steps[:, 1] < 0).sum())
+    branch = int((diag[:-1] - diag[1:]).max())
+    if n_del < cfg["deleted"] or n_ins < cfg["inserted"] \
+            or branch <= TILE_ROWS:
+        raise AssertionError(f"(c) ring graph: the last path has {n_del} "
+                             f"deletions, {n_ins} inserted bases and a "
+                             f"branch of {branch} rows")
+    log(f"poa: (c) ring graph: the last round's path of {len(steps)} steps "
+        f"has {n_del} deleted nodes, {n_ins} inserted bases and a diagonal "
+        f"step {branch} rows back")
+    return errs
+
+
+def check_mixed_bands(sets, device):
+    """Case (f): POA_SETS' isoforms under POA_MIXED_BANDS in one call.
+    Consensi against the native engine at each isoform's band; on a middle
+    round's chunk the kernels against their plain versions, and every
+    problem's matrices against a launch that holds its band alone."""
+    bands = [POA_MIXED_BANDS[i % len(POA_MIXED_BANDS)]
+             for i in range(len(sets))]
+    params = PoaParams(adaptive=True)
+    mid = (len(sets[0]) - 1) // 2
+    consensi, kept = capture_consensus(sets, params, device, {mid}, bands)
+    for reads, band, got in zip(sets, bands, consensi):
+        want = native_poa_consensus(reads, PoaParams(band=band,
+                                                     adaptive=True))
+        if got.tolist() != want.tolist():
+            raise AssertionError(f"(f) consensus under band {band} on the "
+                                 f"card != native engine")
+    if len(kept) != 1 or len(kept[0][3][2]) != len(sets):
+        raise AssertionError(f"(f) round {mid} was {len(kept)} chunks")
+    _k, W, l_cap, arrays = kept[0]
+    errs = check_poa_chunk(f"(f) round {mid}, bands "
+                           f"{sorted(set(bands))} in one chunk", arrays,
+                           params, W, l_cap, device)
+    fwd_in, (nn, _ends, _ql) = poa_problem_tensors(arrays, params, W, device)
+    mixed = poa.clear_rows_past(poa.poa_forward(*fwd_in), nn)
+    for band in sorted(set(bands)):
+        idx = np.flatnonzero(arrays[6] == band)
+        alone_in, (nn_b, _e, _q) = poa_problem_tensors(
+            tuple(a[idx] for a in arrays), PoaParams(band=band,
+                                                     adaptive=True),
+            W, device)
+        # the band from the params, the tensor left out
+        alone = poa.clear_rows_past(poa.poa_forward(*alone_in[:-1]), nn_b)
+        at = torch.from_numpy(idx).to(device)
+        e = max_abs_err([m[at] for m in mixed], alone)
+        if e:
+            raise AssertionError(f"(f) band {band}: matrices in the mixed "
+                                 f"chunk differ from the band's own launch "
+                                 f"by {e}")
+    log(f"poa: (f) {len(sets)} isoforms under bands {bands[:4]} in turns: "
+        f"consensi == native engine; round {mid} is one chunk, and each "
+        f"band's matrices == that band launched alone")
+    return errs
+
+
 def check_poa_cases(rng, device):
-    """Cases (a) to (e) of the module docstring. Returns the measured
+    """Cases (a) to (f) of the module docstring. Returns the measured
     largest differences (forward, walk, sweep) over every chunk compared."""
     errs = []
     cfg = POA_SETS
@@ -517,6 +637,8 @@ def check_poa_cases(rng, device):
         raise AssertionError(f"(c) back-distance {back} <= 256")
     errs.append(check_poa_chunk(f"(c) round {k}, predecessor {back} rows "
                                 f"back", arrays, params, W, l_cap, device))
+    errs += check_ring_and_tile(rng, device)
+    errs.append(check_mixed_bands(sets, device))
 
     cfg = POA_LONG_QUERY
     true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
@@ -536,9 +658,8 @@ def check_poa_cases(rng, device):
     # round 1's walk must cross a tier-2 insertion whose origin column is
     # >= 32768: a run of `insert` inserted bases ending behind that column
     _k, W, l_cap, arrays = kept[0]
-    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
-    buf, ks = poa.poa_walk(nn, ends, ql,
-                           poa.poa_forward(*fwd_in, params, W), l_cap)
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    buf, ks = poa.poa_walk(nn, ends, ql, poa.poa_forward(*fwd_in), l_cap)
     steps = buf[0, :int(ks[0])].cpu().numpy()
     inserted = steps[steps[:, 1] < 0, 0]
     if len(inserted) < cfg["insert"] or inserted.min() < cfg["at"] - 100:
@@ -581,9 +702,8 @@ def check_poa_cases(rng, device):
     errs.append(check_poa_chunk(f"(e) round 1, an insertion run behind "
                                 f"column {cfg['behind']}", arrays, params, W,
                                 l_cap, device, sweep_only=True))
-    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
-    recs, counts = poa.poa_sweep(nn, ends, ql,
-                                 poa.poa_forward(*fwd_in, params, W))
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    recs, counts = poa.poa_sweep(nn, ends, ql, poa.poa_forward(*fwd_in))
     live = recs[0, :int(counts[0])].cpu().numpy()
     runs = live[live[:, 0] >> 16 == poa.REC_INS]
     origins = runs[:, 1] & 0xFFFF
@@ -617,18 +737,46 @@ def consensus_by_records(sets, params, device, rounds=()):
             [c[1] for c in obs.chunks], obs.kept)
 
 
+def tallest_problems(arrays, count: int):
+    """The `count` problems of most graph rows of a chunk, as a chunk of
+    their own, its row cap cut to what they need."""
+    base, preds, nn, ends, qq, ql, band = arrays
+    idx = np.sort(np.argsort(nn, kind="stable")[-count:])
+    n_cap = poa._rank_cap(int(nn[idx].max()))
+    return (base[idx, :n_cap], preds[idx, :n_cap], nn[idx],
+            ends[idx, :n_cap], qq[idx], ql[idx], band[idx])
+
+
+def time_poa_kernels(arrays, params, W, l_cap, device):
+    """(forward ms, step walk ms, walk steps) of one chunk by CUDA events,
+    the forward's mean of 3 launches, the walk's of 6 after one untimed."""
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    mats = poa.poa_forward(*fwd_in)
+    _buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
+    f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in), 3)
+    w_ms = cuda_ms(lambda: poa.poa_walk(nn, ends, ql, mats, l_cap), 6)
+    return f_ms, w_ms, int(ks.sum())
+
+
 def check_poa_main_path(largest, device) -> dict:
     """The largest chunk module D dispatched in the slice run: kernels
-    against plain, timed by CUDA events, with their bounds."""
+    against plain, timed by CUDA events, with their bounds; and the
+    forward and the step walk timed on its five tallest problems alone,
+    the shape of the largest chunk while a round was split by band."""
     arrays, W, l_cap, params = largest
     e_fwd, e_walk, e_sweep = check_poa_chunk(
         "module D's largest chunk", arrays, params, W, l_cap, device)
-    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, device)
-    mats = poa.poa_forward(*fwd_in, params, W)
+    five = tallest_problems(arrays, 5)
+    f5_ms, w5_ms, steps5 = time_poa_kernels(five, params, W, l_cap, device)
+    log(f"poa: the largest chunk's five tallest problems alone (n_cap "
+        f"{five[0].shape[1]}, rows {five[2].tolist()}, W {W}, {steps5} walk "
+        f"steps): forward {f5_ms:.3f} ms, walk {w5_ms:.3f} ms")
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    mats = poa.poa_forward(*fwd_in)
     _buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
     recs, counts = poa.poa_sweep(nn, ends, ql, mats)
-    f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in, params, W), 3)
-    f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in, params, W), 1)
+    f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in), 3)
+    f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in), 1)
     # the two walks in turns, so that neither has the warmer card
     def by_steps():
         poa.poa_walk(nn, ends, ql, mats, l_cap)
@@ -647,14 +795,15 @@ def check_poa_main_path(largest, device) -> dict:
     w_plain = cuda_ms(lambda: poa.poa_walk_plain(nn, ends, ql, mats, l_cap),
                       1)
     s_plain = cuda_ms(lambda: poa.poa_sweep_plain(nn, ends, ql, mats), 1)
-    base, preds, nn_a, _ends, qq, _ql = arrays
+    base, preds, nn_a, _ends, qq, _ql, band = arrays
     rows = nn_a.astype(np.int64)
     cells = int(((rows + 1) * W).sum())
     n_preds = int(sum((preds[b, :n] >= 0).sum() for b, n in enumerate(rows)))
-    # inputs read once (the rows of base and preds up to nn, the queries);
-    # outputs written once: four matrices, offs and endcol, rows 0..nn
+    # inputs read once (the rows of base and preds up to nn, the queries,
+    # the bands); outputs written once: four matrices, offs and endcol,
+    # rows 0..nn
     f_bytes = int((rows * (1 + preds.shape[2]) * 4).sum()) + qq.size * 4 \
-        + cells * 16 + int(((rows + 1) * 8).sum())
+        + band.size * 4 + cells * 16 + int(((rows + 1) * 8).sum())
     f_bound = bound(f_bytes, cells * POA_OPS_PER_CELL
                     + n_preds * W * POA_OPS_PER_PRED, PEAK_I32_OPS_S)
     n_steps = int(ks.sum())
@@ -761,8 +910,17 @@ def run_device_route(out_dir, inputs, walk, keep_largest) -> dict:
 def check_route_launches(run: dict) -> None:
     """The counters must show the walk that was asked for: in a step run
     no sweep; in a record run a sweep for every chunk under the rank
-    limit and a step walk for the rest. dp, chain and forward always."""
+    limit and a step walk for the rest. dp, chain and forward always: the
+    forward once a chunk, and a chunk is a whole round of one width class
+    (isoforms of every band together), so more than six problems in the
+    fullest."""
     launches, chunks = run["launches"], run["stats"].chunks
+    if len(chunks) != len({(c[4], c[2]) for c in chunks}) \
+            or max(c[0] for c in chunks) <= 6:
+        raise AssertionError(f"{run['walk']} run: {len(chunks)} chunks for "
+                             f"{len({(c[4], c[2]) for c in chunks})} (round, "
+                             f"width class) pairs, at most "
+                             f"{max(c[0] for c in chunks)} problems a chunk")
     swept = sum(poa.chunk_walk(run["walk"], c[1]) == "sweep" for c in chunks)
     want = dict(poa_fwd=len(chunks), poa_sweep=swept,
                 poa_walk=len(chunks) - swept)
@@ -774,10 +932,10 @@ def check_route_launches(run: dict) -> None:
                              f"expected {want} for {len(chunks)} chunks")
 
 
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    t_start = time.time()
     device = resolve_device("cuda")
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).strip().splitlines()[0]
@@ -802,7 +960,7 @@ def main() -> None:
     t0 = time.time()
     errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"] = check_poa_cases(
         rng, device)
-    log(f"poa: cases (a)-(e) {time.time() - t0:.1f}s")
+    log(f"poa: cases (a)-(f) {time.time() - t0:.1f}s")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
@@ -880,8 +1038,10 @@ def main() -> None:
 
         classes = sorted({(c[1], c[2]) for c in stats.chunks})
         sizes = [c[0] for c in stats.chunks]
-        log(f"module D: {stats.rounds} rounds, {len(stats.chunks)} chunks, "
-            f"problems a chunk {min(sizes)}..{max(sizes)} (mean "
+        log(f"module D: {stats.rounds} rounds x "
+            f"{len({c[2] for c in stats.chunks})} width classes = "
+            f"{len(stats.chunks)} chunks = forward launches, problems a "
+            f"chunk {min(sizes)}..{max(sizes)} (mean "
             f"{sum(sizes) / len(sizes):.1f}), (n_cap, W) classes {classes}; "
             f"host route D_define {ref_t['D_define']:.2f} s")
         measured.update(check_poa_main_path(stats.largest, device))
@@ -892,6 +1052,7 @@ def main() -> None:
     for name in errs:
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
                                             errs[name])
+    log(f"chip_smoke: every phase passed, {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **measured[name], "library_ms": None}

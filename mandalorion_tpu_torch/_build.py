@@ -41,10 +41,10 @@ _SIGNATURES = {
     # qs, qe, ts, te, cov, n_seg, rows, n, msb, match, min_intron,
     # max_intron, intron_penalty, indel_open, indel_scale, stream
     "mando_chain_rows": [_P] * 7 + [_I64] + [_I32] * 4 + [_F32] * 3 + [_P],
-    # base, preds, nn, qq, ql, hpack, opack, d1p, d2p, offs, endcol, state,
-    # bestc, n, n_cap, p_cap, l_cap, W, match, mismatch, gap_open,
-    # gap_extend, gap_open2, gap_extend2, band, adaptive, stream
-    "mando_poa_fwd": [_P] * 13 + [_I64] + [_I32] * 12 + [_P],
+    # base, preds, nn, qq, ql, band, hpack, opack, d1p, d2p, offs, endcol,
+    # state, bestc, n, n_cap, p_cap, l_cap, W, match, mismatch, gap_open,
+    # gap_extend, gap_open2, gap_extend2, adaptive, stream
+    "mando_poa_fwd": [_P] * 14 + [_I64] + [_I32] * 11 + [_P],
     # nn, ends, ql, hpack, opack, d1p, d2p, offs, endcol, buf, ks, n, n_cap,
     # W, max_steps, stream
     "mando_poa_walk": [_P] * 11 + [_I64] + [_I32] * 3 + [_P],

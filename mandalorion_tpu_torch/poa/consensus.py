@@ -173,8 +173,10 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     'native' (also None, the default: on one device the C++ banded engine
     of native/poa.cpp is what 'auto' resolves to), or 'device', batched
     kernel dispatches on `device` (poa/kernels.py) across whatever set of
-    loci the jobs came from, grouped by params (the adaptive -S analogue
-    can split the band). Both produce the same consensi."""
+    loci the jobs came from. The band half-width is a per-problem input
+    there, so jobs are grouped by their params without the band: jobs
+    whose bands differ (the band follows the median read length) share
+    every round's dispatch. Both produce the same consensi."""
     import dataclasses
     import os
     backend = backend or "native"
@@ -206,12 +208,12 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     by_params: dict = {}
     for i, job in enumerate(jobs):
         if job.result is None:
-            key = dataclasses.astuple(job.params)
+            key = dataclasses.astuple(dataclasses.replace(job.params, band=0))
             by_params.setdefault(key, []).append(i)
     for ids in by_params.values():
-        params = jobs[ids[0]].params
-        consensi = poa_consensus_batch([jobs[i].oriented for i in ids],
-                                       params, device, walk)
+        consensi = poa_consensus_batch(
+            [jobs[i].oriented for i in ids], jobs[ids[0]].params, device,
+            walk, bands=[jobs[i].params.band for i in ids])
         for i, cons in zip(ids, consensi):
             jobs[i].result = (_decode(cons) if len(cons)
                               else jobs[i].fallback)

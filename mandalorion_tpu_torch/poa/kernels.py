@@ -49,8 +49,15 @@ stored columns starting at absolute query column offs[b, t]:
     endcol = H at absolute column ql[b] (NEG outside the window)
 
 All (B, n_cap + 1, W) int32, offs/endcol (B, n_cap + 1) int32, a problem
-contiguous. Rows past nn[b] are zero (endcol NEG) and never read. The
-score and deletion-state rows stay in device scratch.
+contiguous. Every cell of rows 0..nn[b] is written; rows past nn[b] are
+never read and hold nothing a caller may use (the plain version leaves
+zeros and NEG there, the kernel whatever the allocation held:
+`clear_rows_past` makes the two comparable). The score and
+deletion-state rows stay in device scratch.
+
+The band half-width is a per-problem input (`band`, (B,) int32), so one
+dispatch carries problems of any mix of bands; every other field of
+`PoaParams` is one value a dispatch.
 """
 
 from __future__ import annotations
@@ -111,15 +118,17 @@ class RunObserver:
         self.kept: list = []
         self.largest = None
         self.rounds = 0
-        self.chunks: List[Tuple[int, int, int, int]] = []  # B, n_cap, W, rows
+        # B, n_cap, W, rows, round
+        self.chunks: List[Tuple[int, int, int, int, int]] = []
         self.fill_s = 0.0
         self.apply_s = 0.0
         self.events = {"poa_fwd": [], "poa_walk": [], "poa_sweep": []}
 
     def chunk(self, k: int, arrays, W: int, l_cap: int,
               params: PoaParams) -> None:
-        base, nn = arrays[0], arrays[2]
-        self.chunks.append((base.shape[0], base.shape[1], W, int(nn.max())))
+        base, nn = arrays[0], arrays[2]  # arrays: as problems_from_numpy's
+        self.chunks.append((base.shape[0], base.shape[1], W, int(nn.max()),
+                            k))
         if k in self.keep_rounds:
             self.kept.append((k, W, l_cap, arrays))
         if self.keep_largest and (
@@ -213,19 +222,23 @@ def check_problem_ranges(nn: np.ndarray, ql: np.ndarray, n_cap: int,
 
 def problems_from_numpy(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
                         ends: np.ndarray, qq: np.ndarray, ql: np.ndarray,
-                        device) -> Tuple[torch.Tensor, ...]:
+                        band: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
     """The rank-space numpy arrays of a chunk (base (B, n_cap), preds
-    (B, n_cap, p_cap), nn (B,), ends (B, n_cap), qq (B, l_cap), ql (B,))
-    as the device functions' tensors: int32, contiguous, on `device`
-    (ends as uint8), after `check_problem_ranges`."""
+    (B, n_cap, p_cap), nn (B,), ends (B, n_cap), qq (B, l_cap), ql (B,),
+    band (B,) band half-widths) as the device functions' tensors: int32,
+    contiguous, on `device` (ends as uint8), after
+    `check_problem_ranges`."""
     check_problem_ranges(np.asarray(nn), np.asarray(ql), base.shape[1],
                          qq.shape[1])
+    if len(band) != len(nn) or (len(band) and np.min(band) < 0):
+        raise ValueError("one band half-width >= 0 a problem expected")
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
     return (put(base, np.int32), put(preds, np.int32), put(nn, np.int32),
-            put(ends, np.uint8), put(qq, np.int32), put(ql, np.int32))
+            put(ends, np.uint8), put(qq, np.int32), put(ql, np.int32),
+            put(band, np.int32))
 
 
 # ------------------------------------------------------------ forward
@@ -240,11 +253,23 @@ def _cummax(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=1).values
 
 
+def _band_tensor(band: Optional[torch.Tensor], params: PoaParams, B: int,
+                 device: torch.device) -> torch.Tensor:
+    """The (B,) int32 band half-widths: `band`, or params.band for every
+    problem when the caller gave none."""
+    if band is None:
+        return torch.full((B,), params.band, dtype=torch.int32,
+                          device=device)
+    return band
+
+
 def poa_forward_plain(base: torch.Tensor, preds: torch.Tensor,
                       nn: torch.Tensor, qq: torch.Tensor, ql: torch.Tensor,
-                      params: PoaParams, W: int) -> Mats:
+                      params: PoaParams, W: int,
+                      band: Optional[torch.Tensor] = None) -> Mats:
     """Plain PyTorch forward; see `poa_forward` for the contract. The row
-    math of the reference's `_align_rows`, batched over problems."""
+    math of the reference's `_align_rows`, batched over problems, each
+    with its own band half-width."""
     dev = base.device
     i32 = torch.int32
     B, n_cap = base.shape
@@ -256,10 +281,9 @@ def poa_forward_plain(base: torch.Tensor, preds: torch.Tensor,
     nn64, ql64 = nn.long(), ql.long()
     rows_b = torch.arange(B, device=dev)
     cidx = torch.arange(W, device=dev)[None, :]          # (1, W) int64
-    if params.adaptive:
-        eff = torch.full((B,), params.band, dtype=torch.int64, device=dev)
-    else:
-        eff = torch.clamp((nn64 - ql64).abs() + 16, min=params.band)
+    eff = _band_tensor(band, params, B, dev).long()
+    if not params.adaptive:
+        eff = torch.maximum(eff, (nn64 - ql64).abs() + 16)
     off_max = torch.clamp(ql64 + 1 - W, min=0)
 
     def full(shape, value):
@@ -408,16 +432,18 @@ def poa_forward_plain(base: torch.Tensor, preds: torch.Tensor,
     return hpack, opack, d1p, d2p, offs.to(i32), endcol
 
 
-def _poa_forward_cuda(base, preds, nn, qq, ql, params: PoaParams,
+def _poa_forward_cuda(base, preds, nn, qq, ql, band, params: PoaParams,
                       W: int) -> Mats:
     lib = _build.load_kernels()
     dev = base.device
     B, n_cap = base.shape
     rows = n_cap + 1
-    mats = [torch.zeros((B, rows, W), dtype=torch.int32, device=dev)
+    # no fills: the kernel writes every cell of rows 0..nn[b] of all six
+    # outputs, and neither walk reads a row past nn[b]
+    mats = [torch.empty((B, rows, W), dtype=torch.int32, device=dev)
             for _ in range(4)]
-    offs = torch.zeros((B, rows), dtype=torch.int32, device=dev)
-    endcol = torch.full((B, rows), NEG, dtype=torch.int32, device=dev)
+    offs = torch.empty((B, rows), dtype=torch.int32, device=dev)
+    endcol = torch.empty((B, rows), dtype=torch.int32, device=dev)
     # H, D1, D2 state rows and the per-row first-max columns: written
     # before they are read, never returned
     state = torch.empty((3, B, rows, W), dtype=torch.int32, device=dev)
@@ -427,12 +453,12 @@ def _poa_forward_cuda(base, preds, nn, qq, ql, params: PoaParams,
         POA_FWD_LAUNCHES.count += 1
         rc = lib.mando_poa_fwd(
             base.data_ptr(), preds.data_ptr(), nn.data_ptr(), qq.data_ptr(),
-            ql.data_ptr(), *(m.data_ptr() for m in mats), offs.data_ptr(),
-            endcol.data_ptr(), state.data_ptr(), bestc.data_ptr(), B, n_cap,
-            preds.shape[2], qq.shape[1], W, params.match, params.mismatch,
-            params.gap_open, params.gap_extend, params.gap_open2,
-            params.gap_extend2, params.band, 1 if params.adaptive else 0,
-            stream)
+            ql.data_ptr(), band.data_ptr(), *(m.data_ptr() for m in mats),
+            offs.data_ptr(), endcol.data_ptr(), state.data_ptr(),
+            bestc.data_ptr(), B, n_cap, preds.shape[2], qq.shape[1], W,
+            params.match, params.mismatch, params.gap_open,
+            params.gap_extend, params.gap_open2, params.gap_extend2,
+            1 if params.adaptive else 0, stream)
     _build.check(rc, "mando_poa_fwd")
     return (*mats, offs, endcol)
 
@@ -453,16 +479,18 @@ def _check_i32(named: dict, device: torch.device) -> None:
 
 def poa_forward(base: torch.Tensor, preds: torch.Tensor, nn: torch.Tensor,
                 qq: torch.Tensor, ql: torch.Tensor, params: PoaParams,
-                W: int) -> Mats:
+                W: int, band: Optional[torch.Tensor] = None) -> Mats:
     """Forward DP of B (graph, query) problems over rank rows.
 
     base (B, n_cap) node base codes by rank; preds (B, n_cap, p_cap)
     predecessor ranks + 1 (0 = virtual source row, -1 padding) in
     declared order; nn (B,) node counts; qq (B, l_cap) query codes; ql
-    (B,) query lengths < 65536. All int32, contiguous, on one device. W
-    is the stored window width (a power of two >= 256 from
-    `_item_width`); params.adaptive selects the score-following band,
-    else the static diagonal band.
+    (B,) query lengths < 65536; band (B,) band half-widths >= 0, or None
+    for params.band in every problem (params.band is read nowhere else).
+    All int32, contiguous, on one device. W is the stored window width (a
+    power of two >= 256, at least `_item_width` of every problem);
+    params.adaptive selects the score-following band, else the static
+    diagonal band.
 
     Returns (hpack, opack, d1p, d2p, offs, endcol), the module
     docstring's matrix contract. CPU tensors run `poa_forward_plain`,
@@ -482,10 +510,26 @@ def poa_forward(base: torch.Tensor, preds: torch.Tensor, nn: torch.Tensor,
         raise ValueError(f"W={W}: need a power of two >= 256")
     if B == 0:
         raise ValueError("no problems")
+    band = _band_tensor(band, params, B, base.device)
+    _check_i32({"band": (band, (B,))}, base.device)
     if base.device.type == "cpu":
         check_problem_ranges(nn.numpy(), ql.numpy(), n_cap, qq.shape[1])
-        return poa_forward_plain(base, preds, nn, qq, ql, params, W)
-    return _poa_forward_cuda(base, preds, nn, qq, ql, params, W)
+        return poa_forward_plain(base, preds, nn, qq, ql, params, W, band)
+    return _poa_forward_cuda(base, preds, nn, qq, ql, band, params, W)
+
+
+def clear_rows_past(mats: Mats, nn: torch.Tensor) -> Mats:
+    """`mats` with the rows past nn[b], which the contract leaves open,
+    set to what the plain version leaves there (0, endcol NEG): copies,
+    for comparing a kernel's matrices with the plain version's whole."""
+    rows = mats[0].shape[1]
+    past = torch.arange(rows, device=nn.device)[None, :] > nn.long()[:, None]
+    out = []
+    for i, mat in enumerate(mats):
+        mat = mat.clone()
+        mat[past] = NEG if i == 5 else 0
+        out.append(mat)
+    return tuple(out)
 
 
 # --------------------------------------------------------------- walk
@@ -613,8 +657,9 @@ def _poa_walk_cuda(nn, ends, ql, mats: Mats, l_cap: int):
     dev = nn.device
     B, rows, W = hpack.shape
     max_steps = rows - 1 + l_cap + 2
-    buf = torch.zeros((B, max_steps, 2), dtype=torch.int32, device=dev)
-    ks = torch.zeros(B, dtype=torch.int32, device=dev)
+    # entries at and beyond ks[b] are never written
+    buf = torch.empty((B, max_steps, 2), dtype=torch.int32, device=dev)
+    ks = torch.empty(B, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         POA_WALK_LAUNCHES.count += 1
@@ -638,9 +683,10 @@ def poa_walk(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
 
     Returns buf (B, n_cap + l_cap + 2, 2) int32 and ks (B,) int32:
     buf[b, :ks[b]] are the path's (qi, rank) steps in REVERSE order
-    (qi == -1: node deleted; rank == -1: query base inserted). CPU
-    tensors run `poa_walk_plain`, CUDA tensors the csrc/poa_walk.cu
-    kernel, on the current stream with no synchronisation."""
+    (qi == -1: node deleted; rank == -1: query base inserted); entries
+    at and beyond ks[b] are unspecified. CPU tensors run
+    `poa_walk_plain`, CUDA tensors the csrc/poa_walk.cu kernel, on the
+    current stream with no synchronisation."""
     _check_walk_args(nn, ends, ql, mats)
     if l_cap < 0:
         raise ValueError(f"l_cap={l_cap}")
@@ -814,7 +860,7 @@ def expand_walk_records(recs: np.ndarray, k: int) -> np.ndarray:
 
 def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
                    ends: np.ndarray, qq: np.ndarray, ql: np.ndarray,
-                   W: int, l_cap: int, params: PoaParams,
+                   band: np.ndarray, W: int, l_cap: int, params: PoaParams,
                    device: torch.device,
                    observer: Optional[RunObserver] = None,
                    walk: str = "steps") -> Tuple[np.ndarray, np.ndarray]:
@@ -826,15 +872,15 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
     synchronisation."""
     if walk not in WALKS:
         raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
-    t_base, t_preds, t_nn, t_ends, t_qq, t_ql = problems_from_numpy(
-        base, preds, nn, ends, qq, ql, device)
+    t_base, t_preds, t_nn, t_ends, t_qq, t_ql, t_band = problems_from_numpy(
+        base, preds, nn, ends, qq, ql, band, device)
     timed = observer is not None and observer.time_kernels \
         and device.type == "cuda"
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
         if timed else None
     if timed:
         marks[0].record()
-    mats = poa_forward(t_base, t_preds, t_nn, t_qq, t_ql, params, W)
+    mats = poa_forward(t_base, t_preds, t_nn, t_qq, t_ql, params, W, t_band)
     if timed:
         marks[1].record()
     if walk == "sweep":
@@ -918,7 +964,8 @@ def _run_graph_chunk(batch, graphs, queries, orders, n_cap, l_cap, p_cap,
         q = queries[gi]
         qq[bi, :len(q)] = q
         ql[bi] = len(q)
-    buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, W, l_cap,
+    band = np.full(B, params.band, np.int32)
+    buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, band, W, l_cap,
                              params, device)
     for bi, gi in enumerate(batch):
         order = orders[gi]
@@ -995,7 +1042,9 @@ class NativePoaGraph:
 
 def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                         params: Optional[PoaParams] = None, device="cuda",
-                        walk: str = "steps") -> List[np.ndarray]:
+                        walk: str = "steps",
+                        bands: Optional[Sequence[int]] = None
+                        ) -> List[np.ndarray]:
     """Graph-POA consensus of many isoforms at once: reads are threaded in
     lockstep rounds: round k aligns the k-th read of every still-growing
     graph in batched device dispatches on `device` (the per-locus isoform
@@ -1006,10 +1055,20 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     `chunk_walk` lets through leaves the device as run-compressed records
     (`poa_sweep`, `apply_runs`); the consensi are the same either way.
 
+    `bands` gives each sequence set its own band half-width (default:
+    params.band for all). The band is a per-problem input of the forward,
+    so sets of different bands share a round's dispatch: a round is one
+    chunk a width class (more only past CHUNK_BYTES), and each set's
+    consensus is what a call with that band alone gives.
+
     A `RunObserver` installed as `OBSERVER` sees the call's rounds,
     chunks and timings; without one nothing is recorded."""
     params = params or PoaParams()
     device = resolve_device(device)
+    if bands is None:
+        bands = [params.band] * len(seq_sets)
+    if len(bands) != len(seq_sets):
+        raise ValueError("one band per sequence set expected")
     obs = OBSERVER
     graphs = [NativePoaGraph(s[0]) for s in seq_sets]
     max_reads = max((len(s) for s in seq_sets), default=0)
@@ -1028,7 +1087,7 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
             max(graphs[i].max_preds() for i in live), floor=4)
         by_width: dict = {}
         for pos in range(len(live)):
-            w = _item_width(nodes[pos], len(queries[pos]), params.band,
+            w = _item_width(nodes[pos], len(queries[pos]), bands[live[pos]],
                             l_cap, params.adaptive)
             by_width.setdefault(w, []).append(pos)
         for W in sorted(by_width):
@@ -1044,6 +1103,8 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                 nn = np.zeros(B, np.int32)
                 qq = np.zeros((B, l_cap), np.int32)
                 ql = np.zeros(B, np.int32)
+                band = np.array([bands[live[pos]] for pos in batch],
+                                np.int32)
                 for bi, pos in enumerate(batch):
                     g = graphs[live[pos]]
                     nn[bi] = g.fill_arrays(base[bi], preds[bi], ends[bi])
@@ -1052,11 +1113,11 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                     ql[bi] = len(q)
                 if obs is not None:
                     obs.fill_s += time.perf_counter() - t0
-                    obs.chunk(k, (base, preds, nn, ends, qq, ql), W, l_cap,
-                              params)
+                    obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W,
+                              l_cap, params)
                 rows, counts = dispatch_chunk(base, preds, nn, ends, qq, ql,
-                                              W, l_cap, params, device, obs,
-                                              round_walk)
+                                              band, W, l_cap, params, device,
+                                              obs, round_walk)
                 t0 = time.perf_counter()
                 for bi, pos in enumerate(batch):
                     g = graphs[live[pos]]

@@ -13,6 +13,8 @@ card (run them with --noconftest where jax is not installed; the
 reference imports are inside the CPU tests for that reason).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -92,15 +94,17 @@ def _long_insertion_set(seed, length=700, insert=320):
 LONG_BAND = 340
 
 
-def _chunk_arrays(sets, params, round_k):
+def _chunk_arrays(sets, params, round_k, bands=None):
     """Rank-space arrays of round `round_k` (reads 1..round_k-1 threaded
     by the Python engine) for every set, padded as the round loop pads
-    them; one width class (asserted)."""
+    them; one width class (asserted). `bands` gives each set its own band
+    half-width (default: params.band for all)."""
+    bands = [params.band] * len(sets) if bands is None else list(bands)
     graphs, queries = [], []
-    for reads in sets:
+    for reads, band in zip(sets, bands):
         g = PoaGraph(reads[0])
         for q in reads[1:round_k]:
-            g.add_read(q, params)
+            g.add_read(q, dataclasses.replace(params, band=band))
         graphs.append(g)
         queries.append(reads[round_k])
     orders = [g.topo_order() for g in graphs]
@@ -108,9 +112,8 @@ def _chunk_arrays(sets, params, round_k):
     l_cap = K._pow2_at_least(max(len(q) for q in queries))
     p_cap = K._pow2_at_least(max(len(g.preds[v]) for g in graphs
                                  for v in range(len(g.base))), floor=4)
-    widths = {K._item_width(len(o), len(q), params.band, l_cap,
-                            params.adaptive)
-              for o, q in zip(orders, queries)}
+    widths = {K._item_width(len(o), len(q), band, l_cap, params.adaptive)
+              for o, q, band in zip(orders, queries, bands)}
     assert len(widths) == 1
     B = len(sets)
     base = np.zeros((B, n_cap), np.int32)
@@ -124,12 +127,15 @@ def _chunk_arrays(sets, params, round_k):
                                                          order)
         nn[bi], ql[bi] = len(order), len(q)
         qq[bi, :len(q)] = q
-    return (base, preds, nn, ends, qq, ql), widths.pop(), l_cap
+    band = np.array(bands, np.int32)
+    return (base, preds, nn, ends, qq, ql, band), widths.pop(), l_cap
 
 
 def _port_mats(arrays, params, W, device="cpu"):
-    base, preds, nn, ends, qq, ql = K.problems_from_numpy(*arrays, device)
-    return K.poa_forward(base, preds, nn, qq, ql, params, W), (nn, ends, ql)
+    base, preds, nn, ends, qq, ql, band = K.problems_from_numpy(*arrays,
+                                                                device)
+    return (K.poa_forward(base, preds, nn, qq, ql, params, W, band),
+            (nn, ends, ql))
 
 
 def _scoring(p):
@@ -142,7 +148,7 @@ def _reference_xla_mats(arrays, params, W):
     import jax
     import jax.numpy as jnp
     from mandalorion_tpu.poa.kernels import _align_rows
-    base, preds, nn, _ends, qq, ql = arrays
+    base, preds, nn, _ends, qq, ql, _band = arrays
     fn = jax.vmap(lambda b, p, n, q, l: _align_rows(
         b, p, n, q, l, jnp.int32(int(nn.max())), *_scoring(params),
         params.band, W, params.adaptive))
@@ -153,7 +159,7 @@ def _reference_pallas_mats(arrays, params, W):
     """The Pallas kernel in interpret mode; its (n_cap+1, B, ...) layout
     transposed to the port's."""
     from mandalorion_tpu.poa.pallas_kernel import poa_forward_pallas
-    base, preds, nn, _ends, qq, ql = arrays
+    base, preds, nn, _ends, qq, ql, _band = arrays
     outs = poa_forward_pallas(base, preds, nn, qq, ql, int(nn.max()),
                               *_scoring(params), params.band, W,
                               interpret=True)
@@ -207,6 +213,94 @@ def test_forward_rows_past_a_problem_are_inert():
         assert bool((got[5][b, n + 1:] == NEG).all())
 
 
+# a narrow band between wider ones, a wide one between narrower ones
+MIXED_BANDS = (24, 12, 20, 12, 24)
+
+
+def _mixed_band_chunk(seed, adaptive, round_k=3):
+    params = PoaParams(band=MIXED_BANDS[0], adaptive=adaptive)
+    sets = _rand_sets(seed, n_sets=3) + _indel_sets(seed + 1)
+    return _chunk_arrays(sets, params, round_k, MIXED_BANDS) + (params,)
+
+
+def _one_band_at_a_time(arrays, params):
+    """The chunk's problems regrouped by band: [(params of that band,
+    problem indices, the arrays of those problems)]."""
+    band = arrays[6]
+    groups = []
+    for value in sorted(set(band.tolist())):
+        idx = np.flatnonzero(band == value)
+        groups.append((dataclasses.replace(params, band=value), idx,
+                       tuple(a[idx] for a in arrays)))
+    return groups
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_forward_mixed_bands_match_one_band_at_a_time(adaptive):
+    """One chunk of five problems under three bands: every problem's
+    matrices are those of a launch that holds its band alone (band read
+    from params, as before bands were an input), and those are the
+    reference's at that band. Exact."""
+    arrays, W, _l, params = _mixed_band_chunk(31, adaptive)
+    assert len(set(arrays[6].tolist())) == 3 and arrays[2].min() > 0
+    mixed, _ = _port_mats(arrays, params, W)
+    for p_band, idx, sub in _one_band_at_a_time(arrays, params):
+        base, preds, nn, _e, qq, ql, _b = K.problems_from_numpy(*sub, "cpu")
+        alone = K.poa_forward(base, preds, nn, qq, ql, p_band, W)
+        _assert_mats_equal([m[idx] for m in mixed],
+                           [m.numpy() for m in alone], sub[2])
+        _assert_mats_equal(alone, _reference_xla_mats(sub, p_band, W),
+                           sub[2])
+        if adaptive:
+            _assert_mats_equal(alone, _reference_pallas_mats(sub, p_band, W),
+                               sub[2])
+
+
+def test_forward_rejects_a_bad_band():
+    arrays, W, _l, params = _mixed_band_chunk(31, True)
+    base, preds, nn, _e, qq, ql, band = K.problems_from_numpy(*arrays, "cpu")
+    with pytest.raises(ValueError, match="band"):
+        K.poa_forward(base, preds, nn, qq, ql, params, W, band[:2])
+    with pytest.raises(ValueError, match="band"):
+        K.poa_forward(base, preds, nn, qq, ql, params, W, band.long())
+    with pytest.raises(ValueError, match="band"):
+        K.problems_from_numpy(*arrays[:6], -arrays[6], "cpu")
+
+
+def _fan_in_chunk(seed, fan=40, n=150, qlen=120):
+    """Two hand-made rank-space graphs in which every node has all of the
+    `fan` (problem 0) or 3 (problem 1) ranks before it as predecessors,
+    nearest first: lists longer than a warp, most entries far back."""
+    rng = np.random.default_rng(seed)
+    n_cap, l_cap = K._rank_cap(n), K._pow2_at_least(qlen)
+    p_cap = K._pow2_at_least(fan, floor=4)
+    base = np.zeros((2, n_cap), np.int32)
+    preds = np.full((2, n_cap, p_cap), -1, np.int32)
+    ends = np.zeros((2, n_cap), bool)
+    qq = np.zeros((2, l_cap), np.int32)
+    for b, width in enumerate((fan, 3)):
+        base[b, :n] = rng.integers(0, 4, n)
+        for r in range(n):          # rank r is matrix row r + 1
+            rows = np.arange(r, max(r - width, -1), -1)
+            preds[b, r, :len(rows)] = rows
+        ends[b, n - 1] = True
+        qq[b, :qlen] = base[b, rng.choice(n, qlen, replace=False).argsort()]
+    nn = np.full(2, n, np.int32)
+    ql = np.full(2, qlen, np.int32)
+    band = np.array([20, 28], np.int32)
+    return (base, preds, nn, ends, qq, ql, band), 256, l_cap
+
+
+def test_forward_plain_long_predecessor_lists_match_xla():
+    arrays, W, _l = _fan_in_chunk(3)
+    assert arrays[1].shape[2] == 64
+    params = PoaParams(band=20, adaptive=True)
+    got, _ = _port_mats(arrays, params, W)
+    for _p, idx, sub in _one_band_at_a_time(arrays, params):
+        _assert_mats_equal([m[idx] for m in got],
+                           _reference_xla_mats(sub, _p, W), sub[2])
+
+
 def test_forward_reads_rows_beyond_the_reference_ring():
     """A predecessor more than ring_depth(W) - 1 rows back: the reference
     gates such graphs off its Pallas kernel; the port's forward reads any
@@ -224,7 +318,8 @@ def test_forward_reads_rows_beyond_the_reference_ring():
 def test_forward_rejects_bad_arguments():
     params = PoaParams(band=16, adaptive=True)
     arrays, W, _l = _chunk_arrays(_rand_sets(1, n_sets=1), params, 1)
-    base, preds, nn, _ends, qq, ql = K.problems_from_numpy(*arrays, "cpu")
+    base, preds, nn, _ends, qq, ql, _band = K.problems_from_numpy(*arrays,
+                                                                  "cpu")
     with pytest.raises(ValueError, match="power of two"):
         K.poa_forward(base, preds, nn, qq, ql, params, 300)
     with pytest.raises(ValueError, match="int32"):
@@ -242,7 +337,7 @@ def test_walk_plain_matches_reference_walk(seed, make, adaptive):
     from mandalorion_tpu.poa.kernels import _traceback_from_mats_batch
     params = PoaParams(band=20, adaptive=adaptive)
     arrays, W, l_cap = _chunk_arrays(make(seed), params, 2)
-    _base, preds, nn, ends, _qq, ql = arrays
+    _base, preds, nn, ends, _qq, ql, _band = arrays
     mats, (t_nn, t_ends, t_ql) = _port_mats(arrays, params, W)
     buf, ks = K.poa_walk(t_nn, t_ends, t_ql, mats, l_cap)
     # the reference walk takes (n_cap+1, B, ...) mats, batch axis 1
@@ -262,6 +357,12 @@ def test_walk_decodes_tier2_origins_as_unsigned():
     the end cell is a tier-2 insertion with origin 39,990 >= 32768. The
     walk must emit the ten inserted bases 39,999..39,990, then one
     diagonal step into row 0 and row 0's insertions down to column 0."""
+    (nn, ends, ql, mats, l_cap), (qlen, origin) = _tier2_origin_problem("cpu")
+    buf, ks = K.poa_walk_plain(nn, ends, ql, mats, l_cap)
+    _assert_tier2_origin_steps(buf[0, :int(ks[0])].numpy(), qlen, origin)
+
+
+def _tier2_origin_problem(device):
     W, n_cap, l_cap = 256, 64, 65536
     off, qlen, origin = 39_900, 40_000, 39_990
     hpack = np.zeros((1, n_cap + 1, W), np.int32)
@@ -278,15 +379,18 @@ def test_walk_decodes_tier2_origins_as_unsigned():
     # row 1, column `origin`: pre-insertion op is the diagonal
     hpack[0, 1, origin - off] = 0 | (0 << 3) | ((0 + 2) << 6)
     endcol[0, 1] = 5
-    mats = tuple(torch.from_numpy(m) for m in
+    mats = tuple(torch.from_numpy(m).to(device) for m in
                  (hpack, opack, d1p, d2p, offs, endcol))
     ends = torch.zeros((1, n_cap), dtype=torch.uint8)
     ends[0, 0] = 1
     nn = torch.tensor([1], dtype=torch.int32)
     ql = torch.tensor([qlen], dtype=torch.int32)
-    buf, ks = K.poa_walk_plain(nn, ends, ql, mats, l_cap)
-    k = int(ks[0])
-    steps = buf[0, :k].numpy()
+    return ((nn.to(device), ends.to(device), ql.to(device), mats, l_cap),
+            (qlen, origin))
+
+
+def _assert_tier2_origin_steps(steps, qlen, origin):
+    k = len(steps)
     n_ins = qlen - origin
     assert np.array_equal(steps[:n_ins, 0],
                           np.arange(qlen - 1, origin - 1, -1))
@@ -324,6 +428,97 @@ def test_consensus_static_band_matches_oracle():
     got = K.poa_consensus_batch(sets, params, device="cpu")
     for reads, g in zip(sets, got):
         assert g.tolist() == port_oracle(reads, params).tolist()
+
+
+def _banded_sets(seed):
+    """Five read sets and a band for each: three distinct bands."""
+    return _rand_sets(seed, n_sets=3) + _indel_sets(seed + 1), MIXED_BANDS
+
+
+def _grouped_consensi(sets, bands, params, run):
+    """run(sets of one band, params of that band) for each band in turn,
+    as a caller that groups by the whole params does; results in the
+    order of `sets`."""
+    out = [None] * len(sets)
+    for value in sorted(set(bands)):
+        idx = [i for i, b in enumerate(bands) if b == value]
+        got = run([sets[i] for i in idx],
+                  dataclasses.replace(params, band=value))
+        for i, cons in zip(idx, got):
+            out[i] = cons
+    return out
+
+
+def test_consensus_per_set_bands_match_grouped_calls(monkeypatch):
+    """One call with a band a set == one call a band, the native engine
+    and the JAX package's batch path at each band; and the observer sees
+    one chunk a round where the grouped calls dispatched one a band."""
+    from mandalorion_tpu.poa.graph import PoaParams as RefParams
+    from mandalorion_tpu.poa.kernels import (
+        poa_consensus_batch as reference_batch)
+    sets, bands = _banded_sets(31)
+    params = PoaParams(adaptive=True)
+    merged = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", merged)
+    got = K.poa_consensus_batch(sets, params, device="cpu", bands=bands)
+    grouped_obs = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", grouped_obs)
+    grouped = _grouped_consensi(
+        sets, bands, params,
+        lambda ss, p: K.poa_consensus_batch(ss, p, device="cpu"))
+    monkeypatch.setattr(K, "OBSERVER", None)
+    assert [g.tolist() for g in got] == [w.tolist() for w in grouped]
+    monkeypatch.setenv("MANDO_POA_PALLAS", "0")
+    reference = _grouped_consensi(
+        sets, bands, params,
+        lambda ss, p: reference_batch(ss, RefParams(band=p.band,
+                                                    adaptive=True)))
+    assert [g.tolist() for g in got] == [w.tolist() for w in reference]
+    for reads, band, g in zip(sets, bands, got):
+        assert g.tolist() == native_poa_consensus(
+            reads, dataclasses.replace(params, band=band)).tolist()
+    # one width class here: a chunk a round, every live set in it
+    rounds = max(len(reads) for reads in sets) - 1
+    assert merged.rounds == rounds and len(merged.chunks) == rounds
+    assert merged.chunks[0][0] == len(sets)
+    assert len({c[2] for c in merged.chunks}) == 1
+    assert len(grouped_obs.chunks) > len(merged.chunks)
+    assert max(c[0] for c in grouped_obs.chunks) < len(sets)
+
+
+def test_consensus_rejects_a_band_list_of_the_wrong_length():
+    with pytest.raises(ValueError, match="one band"):
+        K.poa_consensus_batch(_rand_sets(1, n_sets=2), PoaParams(),
+                              device="cpu", bands=[16])
+
+
+def test_resolve_jobs_of_three_bands(monkeypatch):
+    """Jobs whose params differ in the band only go through the device
+    backend as one group (one chunk a round) and come out as the calls
+    grouped by band and the native backend give them."""
+    from mandalorion_tpu_torch.align.encode import decode
+    from mandalorion_tpu_torch.poa.consensus import (ConsensusJob,
+                                                     resolve_consensus_jobs)
+    sets, bands = _banded_sets(31)
+    params = PoaParams(adaptive=True)
+
+    def jobs():
+        return [ConsensusJob([f"r{i}"], oriented=reads, fallback="N",
+                             params=dataclasses.replace(params, band=band))
+                for i, (reads, band) in enumerate(zip(sets, bands))] \
+            + [ConsensusJob(["done"], result="ACGT")]
+
+    obs = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", obs)
+    got = resolve_consensus_jobs(jobs(), backend="device", device="cpu")
+    monkeypatch.setattr(K, "OBSERVER", None)
+    assert got[-1] == ("ACGT", ["done"])
+    assert got == resolve_consensus_jobs(jobs(), backend="native")
+    grouped = _grouped_consensi(
+        sets, bands, params,
+        lambda ss, p: K.poa_consensus_batch(ss, p, device="cpu"))
+    assert [c for c, _names in got[:-1]] == [decode(g) for g in grouped]
+    assert len(obs.chunks) == obs.rounds == max(len(r) for r in sets) - 1
 
 
 def test_consensus_with_a_long_back_edge(monkeypatch):
@@ -390,16 +585,18 @@ def cuda_device():
 
 def _assert_kernels_match_plain(arrays, params, W, l_cap, device):
     """Forward and walk kernels against their plain versions on the
-    card: whole tensors, buf[:ks] and ks."""
-    base, preds, nn, ends, qq, ql = K.problems_from_numpy(*arrays, device)
+    card: the matrices' rows 0..nn[b] (`clear_rows_past`), buf[:ks] and
+    ks."""
+    base, preds, nn, ends, qq, ql, band = K.problems_from_numpy(*arrays,
+                                                                device)
     before = (K.POA_FWD_LAUNCHES.count, K.POA_WALK_LAUNCHES.count)
-    mats = K.poa_forward(base, preds, nn, qq, ql, params, W)
+    mats = K.poa_forward(base, preds, nn, qq, ql, params, W, band)
     buf, ks = K.poa_walk(nn, ends, ql, mats, l_cap)
     torch.cuda.synchronize()
     assert (K.POA_FWD_LAUNCHES.count, K.POA_WALK_LAUNCHES.count) == \
         (before[0] + 1, before[1] + 1)
-    want = K.poa_forward_plain(base, preds, nn, qq, ql, params, W)
-    for g, w in zip(mats, want):
+    want = K.poa_forward_plain(base, preds, nn, qq, ql, params, W, band)
+    for g, w in zip(K.clear_rows_past(mats, nn), want):
         assert torch.equal(g, w)
     want_buf, want_ks = K.poa_walk_plain(nn, ends, ql, want, l_cap)
     assert torch.equal(ks, want_ks)
@@ -421,6 +618,97 @@ def test_cuda_kernels_long_back_edge(cuda_device):
     params = PoaParams(band=LONG_BAND, adaptive=True)
     arrays, W, l_cap = _chunk_arrays([_long_insertion_set(21)], params, 3)
     _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_cuda_kernels_mixed_bands(cuda_device, adaptive):
+    """The mixed-band chunk on the card: kernels == plain, and every
+    problem's matrices are those of a launch with its band alone."""
+    arrays, W, l_cap, params = _mixed_band_chunk(31, adaptive)
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+    base, preds, nn, _e, qq, ql, band = K.problems_from_numpy(*arrays,
+                                                              cuda_device)
+    mixed = K.clear_rows_past(
+        K.poa_forward(base, preds, nn, qq, ql, params, W, band), nn)
+    for p_band, idx, sub in _one_band_at_a_time(arrays, params):
+        base, preds, nn, _e, qq, ql, _b = K.problems_from_numpy(*sub,
+                                                                cuda_device)
+        alone = K.clear_rows_past(
+            K.poa_forward(base, preds, nn, qq, ql, p_band, W), nn)
+        for m, a in zip(mixed, alone):
+            assert torch.equal(m[torch.from_numpy(idx).to(cuda_device)], a)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_long_predecessor_lists(cuda_device):
+    """64-entry predecessor lists (two parts of 32 lanes), 40 of them in
+    use, most beyond the shared-memory ring."""
+    arrays, W, l_cap = _fan_in_chunk(3)
+    _assert_kernels_match_plain(arrays, PoaParams(band=20, adaptive=True),
+                                W, l_cap, cuda_device)
+
+
+# an insertion of 40 bases under a band of 60: W stays 256, where the
+# forward keeps 16 rows in shared memory, and the walk's tile holds 64
+RING_SET = dict(length=700, insert=40)
+RING_BAND = 60
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_k", [2, 3, 4])
+def test_cuda_forward_ring_hit_and_miss_in_one_problem(cuda_device, round_k):
+    """Predecessors the row before (the shared-memory ring) and more than
+    16 rows back (the state scratch) in one problem at W = 256; the walk
+    crosses the 40 inserted nodes in one diagonal step (a branch out of
+    its tile) or threads the 40 bases (rounds 3 and 2, 4)."""
+    params = PoaParams(band=RING_BAND, adaptive=True)
+    arrays, W, l_cap = _chunk_arrays([_long_insertion_set(21, **RING_SET)],
+                                     params, round_k)
+    assert W == 256
+    _base, preds, nn, *_ = arrays
+    rows = np.arange(1, int(nn[0]) + 1)[:, None]
+    back = np.where(preds[0, :nn[0]] >= 1, rows - preds[0, :nn[0]], 0)
+    assert (back == 1).any() and back.max() > 16
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_k", [2, 4])
+def test_cuda_walk_leaves_its_tile(cuda_device, round_k):
+    """A path that mixes runs of diagonal steps with deletions, insertion
+    runs and a branch to a predecessor far outside the staged tile (over
+    320 rows back): every way out of the walk kernel's tile."""
+    params = PoaParams(band=LONG_BAND, adaptive=True)
+    reads = _long_insertion_set(21)
+    # the query: a read without the 320-base insertion, with a 5-base
+    # deletion and a 7-base insertion of its own
+    q = reads[round_k]
+    q = np.concatenate([q[:100], q[105:200], np.array([0, 1, 2, 3, 0, 1, 2],
+                                                      np.uint8), q[200:]])
+    reads = reads[:round_k] + [q]
+    arrays, W, l_cap = _chunk_arrays([reads], params, round_k)
+    base, preds, nn, ends, qq, ql, band = K.problems_from_numpy(*arrays,
+                                                                cuda_device)
+    want = K.poa_forward_plain(base, preds, nn, qq, ql, params, W, band)
+    want_buf, want_ks = K.poa_walk_plain(nn, ends, ql, want, l_cap)
+    steps = want_buf[0, :int(want_ks[0])].cpu().numpy()
+    diag = steps[(steps[:, 0] >= 0) & (steps[:, 1] >= 0), 1]
+    assert (steps[:, 0] < 0).sum() >= 5            # deleted nodes
+    assert (steps[:, 1] < 0).sum() >= 7            # inserted bases
+    assert (diag[:-1] - diag[1:]).max() > 300      # the far branch
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_walk_decodes_tier2_origins_as_unsigned(cuda_device):
+    """The hand-made matrices of the CPU test: two runs of inserted bases
+    (10 and 39,989 steps) written by all lanes at once."""
+    (nn, ends, ql, mats, l_cap), (qlen, origin) = _tier2_origin_problem(
+        cuda_device)
+    buf, ks = K.poa_walk(nn, ends, ql, mats, l_cap)
+    _assert_tier2_origin_steps(buf[0, :int(ks[0])].cpu().numpy(), qlen,
+                               origin)
 
 
 @pytest.mark.cuda

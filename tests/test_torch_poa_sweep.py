@@ -63,7 +63,7 @@ def _indel_heavy_sets(seed, n_sets=2, length=260):
 
 def _padded(arrays, to=PAD_TO):
     """The chunk with inert problems (no nodes, no query) appended."""
-    base, preds, nn, ends, qq, ql = arrays
+    base, preds, nn, ends, qq, ql, band = arrays
     pad = to - len(nn)
 
     def more(a, fill=0):
@@ -71,7 +71,7 @@ def _padded(arrays, to=PAD_TO):
                                           a.dtype)])
 
     return (more(base), more(preds, -1), more(nn), more(ends), more(qq),
-            more(ql))
+            more(ql), more(band, band[0]))
 
 
 def _sweep_and_steps(arrays, params, W, l_cap, device="cpu"):
@@ -102,7 +102,7 @@ def test_sweep_plain_matches_pallas_sweep(make, seed, band):
     sets = make(seed)
     arrays, W, l_cap = _chunk_arrays(sets, params, 3)
     arrays = _padded(arrays)
-    base, preds, nn, ends, qq, ql = arrays
+    base, preds, nn, ends, qq, ql, _band = arrays
     _mats, recs, counts, buf, ks = _sweep_and_steps(arrays, params, W, l_cap)
 
     ref_mats = poa_forward_pallas(base, preds, nn, qq, ql, int(nn.max()),
