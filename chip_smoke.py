@@ -15,8 +15,12 @@ line is printed only when every phase passed:
    card, with exact equality.
    - dp: random problems across the whole envelope (query rows 1..2048 x
      target bases 1..2303, modes global / extend_right / extend_left,
-     with end_bonus=12 and with zdrop) and the real descriptors of the
-     slice's first read batch;
+     with end_bonus=12 and with zdrop), timed by row class; every layout
+     class of the kernel in one launch (strip edges at 32, 33, 64, 65
+     rows, pointers and boundary rows in shared memory and in scratch,
+     blocks of warps on one problem) with zdrop cuts inside a strip; and
+     the real descriptors of the slice's first read batch, whose pointers
+     must all stay in shared memory;
    - chain: random 512-segment candidates and the real seed-stage output
      of that batch;
    - poa_fwd, poa_walk, poa_sweep: (a) real chunks of a consensus run of
@@ -38,7 +42,10 @@ line is printed only when every phase passed:
      each band, and each problem's matrices against a launch that holds
      its band alone; and, after the slice, the largest chunk module D
      dispatched in it. On every chunk the record walk's records,
-     expanded, must be the step walk's steps.
+     expanded, must be the step walk's steps; the two walks are timed in
+     turns on (c)'s last round, on (e) and on the largest chunk. Ladders
+     of hand-made cells hold the record walk's cuts (max_rec inside a
+     tile, 3 x rows transitions) against the plain version.
    Times come from CUDA events at the main path's own shapes: the first
    read batch for dp and chain, module D's largest chunk (a whole round:
    every isoform still growing, whatever its band) for the POA kernels;
@@ -63,14 +70,23 @@ line is printed only when every phase passed:
 5. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
+Processes: the script adopts every process it starts, directly or not
+(it is their child subreaper on Linux), and before it prints its last
+lines, or when a phase fails, it stops what is still running below it:
+the multiprocessing resource tracker that the pipeline's shared-memory
+segments start in this process, and anything else, by SIGTERM and then
+SIGKILL. Nothing it started outlives it.
+
 This script imports only the port; byte identity against the JAX package
 is held by the CPU tests (tests/test_torch_*.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -171,6 +187,86 @@ SWEEP_READ_BYTES = {poa.REC_DIAG: 8, poa.REC_DEL: 8, poa.REC_INS: 12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_descendants() -> None:
+    """Make this process the reaper of every process below it, so that a
+    grandchild whose parent has exited (a worker's resource tracker, say)
+    is still found by stop_descendants. Linux only; elsewhere a no-op."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants() -> list:
+    """Pids of the processes below this one that have not exited (zombies
+    left out), read from /proc."""
+    parent, state = {}, {}
+    for entry in os.listdir("/proc") if os.path.isdir("/proc") else ():
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        parent[int(entry)], state[int(entry)] = int(fields[1]), fields[0]
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        pid = frontier.pop()
+        kids = [p for p, pp in parent.items() if pp == pid]
+        found += kids
+        frontier += kids
+    return [p for p in found if state[p] != "Z"]
+
+
+def reap() -> None:
+    """Collect every child that has exited."""
+    while True:
+        try:
+            pid, _status = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants() -> list:
+    """Stop every process still running below this one and reap it: the
+    resource tracker by closing its pipe (it ignores SIGTERM and unlinks
+    what it still tracks), the rest by SIGTERM, then SIGKILL after 5 s.
+    Returns the command lines of the processes other than the tracker
+    that had to be stopped."""
+    from multiprocessing import resource_tracker
+    stop_tracker = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop_tracker is not None:
+        stop_tracker()
+    left = descendants()
+    names = []
+    for pid in left:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                names.append(fh.read().replace(b"\0", b" ").decode().strip())
+        except OSError:
+            pass
+    for sig, grace in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        t_end = time.time() + grace
+        while left and time.time() < t_end:
+            reap()
+            time.sleep(0.05)
+            left = descendants()
+    reap()
+    return names
 
 
 def run(cmd, **kw) -> str:
@@ -290,6 +386,89 @@ def check_dp_random(rng, device) -> int:
     return err
 
 
+# csrc/dp.cu's layout classes, as (query rows, target bases): strip edges
+# (32, 33, 64, 65 rows), pointers in shared memory and in scratch, boundary
+# rows in scratch, teams with fewer and with more strips than warps, tall and
+# narrow on one warp
+DP_LAYOUT_SHAPES = ((32, 300), (32, 2303), (33, 150), (40, 400), (64, 1500),
+                    (65, 2303), (100, 2100), (300, 1000), (2048, 700),
+                    (2048, 60), (5, 7), (20, 30))
+# queries that follow their target for this many rows, then turn random:
+# the zdrop latch trips inside a strip (at 1000 rows, inside a team's)
+DP_ZDROP_CUTS = (45, 100, 1000)
+
+
+def check_dp_layouts(device) -> int:
+    """Every layout class of csrc/dp.cu in one launch, in each mode, under
+    four scorings, against the plain version; zdrop cuts inside a strip.
+    Uses a generator of its own, so the phases after it see the parent's
+    random numbers."""
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 1 << 20).astype(np.uint8)
+    queries, specs = [], []
+    for k, (nq, nt) in enumerate(DP_LAYOUT_SHAPES):
+        for mode in (0, 1, 2):
+            t0 = int(rng.integers(0, len(genome) - nt))
+            q = np.concatenate([genome[t0:t0 + nt],
+                                rng.integers(0, 4, max(nq - nt, 0))])[:nq]
+            q = np.where(rng.random(nq) < (0.08 if k % 2 == 0 else 0.75),
+                         rng.integers(0, 4, nq), q)
+            queries.append(q.astype(np.uint8))
+            specs.append((nq, nt, mode, t0))
+    for cut in DP_ZDROP_CUTS:
+        for mode in (1, 2):
+            # extend_left reads both slices from their ends
+            t0 = int(rng.integers(0, len(genome) - 1200))
+            follow = genome[t0:t0 + cut] if mode == 1 else \
+                genome[t0 + 1200 - cut:t0 + 1200]
+            tail = rng.integers(0, 4, 1200 - cut)
+            queries.append(np.concatenate(
+                [follow, tail] if mode == 1 else [tail, follow]
+            ).astype(np.uint8))
+            specs.append((1200, 1200, mode, t0))
+    nq, nt, mode, t_lo = (np.array([s_[i] for s_ in specs])
+                          for i in range(4))
+    lay = kernels.dp_layout(nq, nt)
+    kinds = dict(shared=int((lay.ptr_off < 0).sum()),
+                 scratch=int((lay.ptr_off >= 0).sum()) - (len(nq)
+                                                          - lay.n_small),
+                 boundary_scratch=int((lay.bnd_off >= 0).sum()),
+                 team=len(nq) - lay.n_small)
+    if min(kinds.values()) <= 0:
+        raise AssertionError(f"dp layout check covers {kinds}")
+    q_lo = np.cumsum([0] + [len(q) for q in queries[:-1]])
+
+    def put(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype)).to(device)
+
+    args = (put(genome, np.uint8), put(np.concatenate(queries), np.uint8),
+            put(q_lo, np.int64), put(t_lo, np.int64), put(nq, np.int32),
+            put(nt, np.int32), put(mode, np.uint8))
+    steps = int((nq + nt).max())
+    err, cut_rows = 0, []
+    for cfg in (AlignConfig(), AlignConfig(end_bonus=12),
+                AlignConfig(zdrop=40), AlignConfig(end_bonus=12, zdrop=40)):
+        got = kernels.dp_fused(*args, cfg, steps)
+        want = kernels.dp_fused_plain(*args, cfg, steps)
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"dp kernel != plain on the layout classes "
+                                 f"(end_bonus={cfg.end_bonus}, zdrop="
+                                 f"{cfg.zdrop}): max err {e}")
+        err = max(err, e)
+        if cfg.zdrop and not cfg.end_bonus:
+            cut_rows = want[0][-2 * len(DP_ZDROP_CUTS):, 0].tolist()
+    for k, cut in enumerate(DP_ZDROP_CUTS):
+        rows = cut_rows[2 * k:2 * k + 2]
+        if not all(cut - 2 <= r <= cut + 5 for r in rows):
+            raise AssertionError(f"zdrop after row {cut}: best rows {rows}")
+    log(f"dp: layout classes {kinds} (warp share {lay.warp_share} B) in one "
+        f"launch, shapes {list(DP_LAYOUT_SHAPES)} x 3 modes and zdrop cuts "
+        f"after rows {DP_ZDROP_CUTS} (best rows {cut_rows}), 4 scorings: "
+        f"kernel == plain")
+    return err
+
+
 def check_chain_random(rng, device) -> int:
     """512-segment candidates: sorted collinear segments with indel and
     intron gaps, overlaps and off-diagonal noise, cov <= span."""
@@ -354,6 +533,13 @@ def check_first_batch(aligner, reads, device):
     genome = aligner.genome_codes
     d_err = 0
     for _idx, desc, steps in chunks:
+        lay = kernels.dp_layout(desc[2].cpu().numpy(), desc[3].cpu().numpy())
+        if (lay.ptr_off >= 0).any() or lay.n_small != len(lay.order):
+            raise AssertionError("dp: a problem of the first batch keeps its "
+                                 "pointers in scratch")
+        log(f"dp: first batch chunk of {len(lay.order)} problems: pointers "
+            f"of all in shared memory, {lay.warp_share} B a warp, "
+            f"{int((lay.bnd_off >= 0).sum())} boundary rows in scratch")
         got = kernels.dp_fused(genome, oriented_t, *desc, cfg, steps)
         want = kernels.dp_fused_plain(genome, oriented_t, *desc, cfg, steps)
         d_err = max(d_err, max_abs_err(got, want))
@@ -536,9 +722,12 @@ def check_ring_and_tile(rng, device):
         raise AssertionError(f"(c) ring graph: the last path has {n_del} "
                              f"deletions, {n_ins} inserted bases and a "
                              f"branch of {branch} rows")
+    turns = time_walks(arrays, params, W, l_cap, device)
     log(f"poa: (c) ring graph: the last round's path of {len(steps)} steps "
         f"has {n_del} deleted nodes, {n_ins} inserted bases and a diagonal "
-        f"step {branch} rows back")
+        f"step {branch} rows back; walks on its chunk, turns of 3 launches, "
+        f"steps records records steps: "
+        + " ".join(f"{ms:.3f}" for ms in turns) + " ms")
     return errs
 
 
@@ -584,6 +773,71 @@ def check_mixed_bands(sets, device):
         f"consensi == native engine; round {mid} is one chunk, and each "
         f"band's matrices == that band launched alone")
     return errs
+
+
+def time_walks(arrays, params, W, l_cap, device):
+    """The step walk and the record walk on one chunk's matrices, by CUDA
+    events, in turns (steps, records, records, steps) of 3 launches each
+    after one untimed launch of each: the four times in ms."""
+    fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
+    mats = poa.poa_forward(*fwd_in)
+
+    def by_steps():
+        poa.poa_walk(nn, ends, ql, mats, l_cap)
+
+    def by_records():
+        poa.poa_sweep(nn, ends, ql, mats)
+
+    # the untimed launches: a plain version before this leaves the card
+    # cold, and the first timed turn would pay for it
+    by_steps()
+    by_records()
+    return [cuda_ms(fn, 3) for fn in (by_steps, by_records, by_records,
+                                      by_steps)]
+
+
+def ladder_problem(n_cap: int, device):
+    """One problem whose rows n_cap .. 1 are a ladder of diagonal steps (row
+    r into row r - 1) and whose row 1 leads back up to row n_cap, over query
+    columns 145..400: the walk climbs the ladder, 32 diagonal steps a tile,
+    until a bound cuts it (the forward never writes such a loop)."""
+    W, qlen, off = 256, 400, 145
+    rows = n_cap + 1
+    node = np.arange(rows) + 1
+    node[1] = n_cap + 2
+    hpack = np.zeros((1, rows, W), np.int32)
+    hpack[0, 1:] = (node[1:] << 6)[:, None]
+    zeros = np.zeros_like(hpack)
+    endcol = np.full((1, rows), -10 ** 9, np.int32)
+    endcol[0, n_cap] = 5
+    ends = np.zeros((1, n_cap), np.uint8)
+    ends[0, n_cap - 1] = 1
+    mats = tuple(torch.from_numpy(m).to(device) for m in
+                 (hpack, zeros, zeros, zeros,
+                  np.full((1, rows), off, np.int32), endcol))
+    return (torch.tensor([n_cap], dtype=torch.int32, device=device),
+            torch.from_numpy(ends).to(device),
+            torch.tensor([qlen], dtype=torch.int32, device=device), mats)
+
+
+def check_sweep_cuts(device) -> int:
+    """The record walk's two bounds on a ladder: max_rec cuts a tile's
+    diagonal records (n_cap 64), the 3 x rows transitions cut first (n_cap
+    4); kernel == plain, record for record."""
+    err = 0
+    for n_cap, cut in ((64, poa.sweep_record_cap(64)), (4, 3 * 5)):
+        nn, ends, ql, mats = ladder_problem(n_cap, device)
+        recs, counts = poa.poa_sweep(nn, ends, ql, mats)
+        want, want_counts = poa.poa_sweep_plain(nn, ends, ql, mats)
+        err = max(err, max_abs_err([counts, recs[:, :cut]],
+                                   [want_counts, want[:, :cut]]))
+        if err or int(counts[0]) != cut:
+            raise AssertionError(f"record walk on a ladder of {n_cap} rows: "
+                                 f"{int(counts[0])} records (cut at {cut}), "
+                                 f"max err {err}")
+    log("poa: record walk on ladders: cut at max_rec inside a tile and at 3 "
+        "x rows transitions, kernel == plain")
+    return err
 
 
 def check_poa_cases(rng, device):
@@ -719,6 +973,11 @@ def check_poa_cases(rng, device):
         f"{int(origins[long_runs].max())}, {len(live)} records; by records "
         f"== native engine, row caps {caps}: {n_sweep} sweep + {n_walk} "
         f"step walk launches")
+    turns = time_walks(arrays, params, W, l_cap, device)
+    log("poa: (e) round 1's chunk, walks in turns of 3 launches, steps "
+        "records records steps: " + " ".join(f"{ms:.3f}" for ms in turns)
+        + " ms")
+    errs.append((0, 0, check_sweep_cuts(device)))
     return tuple(max(e[i] for e in errs) for i in range(3))
 
 
@@ -777,19 +1036,7 @@ def check_poa_main_path(largest, device) -> dict:
     recs, counts = poa.poa_sweep(nn, ends, ql, mats)
     f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in), 3)
     f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in), 1)
-    # the two walks in turns, so that neither has the warmer card
-    def by_steps():
-        poa.poa_walk(nn, ends, ql, mats, l_cap)
-
-    def by_records():
-        poa.poa_sweep(nn, ends, ql, mats)
-
-    # one untimed launch of each first: the plain forward before this
-    # leaves the card cold, and the first timed turn would pay for it
-    by_steps()
-    by_records()
-    turn_ms = [cuda_ms(fn, 3) for fn in (by_steps, by_records, by_records,
-                                         by_steps)]
+    turn_ms = time_walks(arrays, params, W, l_cap, device)
     w_ms = (turn_ms[0] + turn_ms[3]) / 2
     s_ms = (turn_ms[1] + turn_ms[2]) / 2
     w_plain = cuda_ms(lambda: poa.poa_walk_plain(nn, ends, ql, mats, l_cap),
@@ -955,7 +1202,8 @@ def main() -> None:
     log(f"build: native library {time.time() - t0:.1f}s")
 
     rng = np.random.default_rng(0)
-    errs = {"dp_fused": check_dp_random(rng, device),
+    errs = {"dp_fused": max(check_dp_random(rng, device),
+                            check_dp_layouts(device)),
             "chain_rows": check_chain_random(rng, device)}
     t0 = time.time()
     errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"] = check_poa_cases(
@@ -1052,6 +1300,10 @@ def main() -> None:
     for name in errs:
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
                                             errs[name])
+    stopped = stop_descendants()
+    if stopped:
+        print(f"chip_smoke: stopped processes still running at the end: "
+              f"{stopped}", file=sys.stderr, flush=True)
     log(f"chip_smoke: every phase passed, {time.time() - t_start:.0f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1064,4 +1316,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    adopt_descendants()
+    try:
+        main()
+    finally:
+        stop_descendants()

@@ -3,8 +3,9 @@
 nvcc compiles every source (one nvcc process per source, all started
 together) and links them into one shared library with a plain C
 interface, loaded through ctypes. The library is built on first use,
-named by a hash of the sources and flags, into runtime.kernel_build_dir(),
-so an edited kernel rebuilds and an unchanged one loads at once. Each C
+named by a hash of the flags, the sources and the device headers they
+include (csrc/*.cuh), into runtime.kernel_build_dir(), so an edited
+kernel or header rebuilds and an unchanged one loads at once. Each C
 entry launches on the stream it is given and returns cudaGetLastError();
 `check` turns a non-zero code into an exception.
 """
@@ -34,10 +35,11 @@ _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 _F32 = ctypes.c_float
 _SIGNATURES = {
-    # genome, oriented, q_lo, t_lo, nq, nt, mode, ptr_off, ptr, meta, ks,
-    # buf, n, steps, match, mismatch, gap_open, gap_extend, end_bonus,
-    # zdrop, stream
-    "mando_dp_fused": [_P] * 12 + [_I64, _I64] + [_I32] * 6 + [_P],
+    # genome, oriented, q_lo, t_lo, nq, nt, mode, order, ptr_off, bnd_off,
+    # ptr, bnd, meta, ks, buf, n, n_small, steps, per_block, warp_share,
+    # block_bytes, match, mismatch, gap_open, gap_extend, end_bonus, zdrop,
+    # stream
+    "mando_dp_fused": [_P] * 15 + [_I64] * 3 + [_I32] * 9 + [_P],
     # qs, qe, ts, te, cov, n_seg, rows, n, msb, match, min_intron,
     # max_intron, intron_penalty, indel_open, indel_scale, stream
     "mando_chain_rows": [_P] * 7 + [_I64] + [_I32] * 4 + [_F32] * 3 + [_P],
@@ -61,6 +63,10 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -75,9 +81,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
             h.update(fh.read())

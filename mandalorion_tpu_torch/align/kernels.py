@@ -8,7 +8,9 @@ reads (meta, ks, buf, on_host). Two implementations of one function:
 - `dp_fused_plain`: the reference's row math (`row_step`, `_row0`,
   `_dp_kernel`'s best-cell and zdrop tracking, `_traceback_walk`) in
   plain PyTorch, batched over problems with a loop over query rows;
-- csrc/dp.cu: the hand-written CUDA kernel (one block per problem).
+- csrc/dp.cu: the hand-written CUDA kernel (a warp a problem, lanes on
+  query rows; tall and wide problems a block each), laid out by
+  `dp_layout`.
 
 `dp_fused` dispatches on the tensors' device: CPU tensors take the plain
 version, CUDA tensors the kernel (never the other way round).
@@ -23,7 +25,7 @@ host solver, exactly as in the reference.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +44,21 @@ MAX_T_DEVICE = 2303
 PTR_BUDGET = 1 << 30
 
 DP_LAUNCHES = LaunchCounter("dp_fused")
+
+# csrc/dp.cu's launch geometry: WARPS warps a block, each with WARP_SHARE_CAP
+# bytes of shared memory at most; a lane computes one column a step on a
+# one-warp problem, TEAM_COLS on a team's; a problem whose pointers spill to
+# scratch stages WIN_BYTES of them for its walk; a team problem's block keeps
+# TEAM_FLAGS bytes of progress flags. A problem of two strips of 32 query
+# rows or more, more than 64 groups of TEAM_COLS columns (a strip trails the
+# one above by some 48 steps) and at least TEAM_STEPS team steps (strips x
+# (groups + 31)) takes a whole block.
+WARPS = 8
+TEAM_COLS = 4
+WARP_SHARE_CAP = 12 * 1024
+WIN_BYTES = 64 * 32
+TEAM_FLAGS = 64
+TEAM_STEPS = 1024
 
 Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -156,33 +173,160 @@ def dp_fused_plain(genome: torch.Tensor, oriented: torch.Tensor,
     return meta, ks.to(i32), buf
 
 
-def _dp_fused_cuda(genome, oriented, q_lo, t_lo, nq, nt, mode,
-                   cfg: AlignConfig, steps: int) -> Tensors:
+def _align16(x):
+    return (x + 15) // 16 * 16
+
+
+class DpLayout(NamedTuple):
+    """Where csrc/dp.cu puts each problem of a launch (`dp_layout`)."""
+    order: np.ndarray      # (n,) int32: one-warp problems, then team ones
+    n_small: int           # problems on one warp each
+    ptr_off: np.ndarray    # (n,) int64 bytes into the pointer scratch, -1:
+    #                        pointers in shared memory
+    bnd_off: np.ndarray    # (n,) int64 (H, E) entries into the boundary
+    #                        scratch, -1: none or in shared memory
+    ptr_bytes: int         # pointer scratch, WIN_BYTES of slack included
+    bnd_entries: int       # boundary scratch, in (H, E) int32 pairs
+    warp_share: int        # shared-memory bytes a one-warp problem's warp
+    per_block: int         # one-warp problems a block
+    block_bytes: int       # shared-memory bytes a block
+    all_shared: bool       # every problem on one warp, in its order, with
+    #                        everything in shared memory
+
+
+def dp_layout(nq: np.ndarray, nt: np.ndarray, n_sm: int = 132
+              ) -> DpLayout:
+    """csrc/dp.cu's layout of a launch, from the problems' sizes.
+
+    A warp's share holds the target codes (nt + 1 bytes, rounded to 16),
+    the boundary row between strips when nq > 32 (H and E, 8 bytes a
+    column) and the pointer bytes (nq rows at a pitch of 5 mod 8 bytes),
+    or the walk's window of WIN_BYTES when the pointers spill to scratch,
+    laid out (strip, step, lane) in 32 x (nt + 32) bytes a strip. A team
+    computes TEAM_COLS columns a lane and a step: its scratch takes
+    32 x (groups + 31) words of TEAM_COLS bytes a strip, its WARPS boundary
+    rows 8 x TEAM_COLS bytes a group each. Pointers stay in
+    shared memory when all three fit WARP_SHARE_CAP; a spilling problem
+    keeps its boundary row there if it fits beside the window. A team
+    problem (a block) keeps its pointers and WARPS boundary rows in scratch
+    and needs TEAM_FLAGS + 8 nq + codes + WIN_BYTES bytes of its block.
+    warp_share is the largest one-warp need of the launch. One-warp
+    problems go WARPS to a block, fewer when the launch has too few of
+    them to give each of the card's n_sm SMs a block."""
+    nq = np.asarray(nq, np.int64)
+    nt = np.asarray(nt, np.int64)
+    n = len(nq)
+    width = nt + 1
+    t_bytes = _align16(width)
+    b_bytes = np.where(nq > 32, _align16(8 * width), 0)
+    p_bytes = _shared_need(nq, nt) - t_bytes - b_bytes
+    in_shared = t_bytes + b_bytes + p_bytes <= WARP_SHARE_CAP
+    if n and in_shared.all() and not ((nq > 32) & (nt > 255)).any():
+        # no team (one strip, or at most 64 groups) and nothing in scratch
+        return _on_chip_layout(n, int((t_bytes + b_bytes + p_bytes).max()),
+                               n_sm)
+    strips = (nq + 31) // 32
+    groups = (nt + TEAM_COLS) // TEAM_COLS
+    team = (strips > 1) & (groups > 64) & (strips * (groups + 31)
+                                           >= TEAM_STEPS)
+    in_shared &= ~team
+    bnd_shared = (nq > 32) & ~team & (
+        in_shared | (t_bytes + b_bytes + WIN_BYTES <= WARP_SHARE_CAP))
+    need = t_bytes + np.where(bnd_shared, b_bytes, 0) + np.where(
+        in_shared, p_bytes, WIN_BYTES)
+    team_need = TEAM_FLAGS + _align16(8 * nq) + \
+        _align16(TEAM_COLS * groups) + WIN_BYTES
+    n_small = int((~team).sum())
+    warp_share = _align16(int(need[~team].max(initial=16)))
+    per_block = int(min(WARPS, max(1, -(-n_small // n_sm))))
+    g_bytes = np.where(in_shared, 0, strips * 32 * np.where(
+        team, (groups + 31) * TEAM_COLS, width + 31))
+    ptr_off = np.where(in_shared, -1, np.cumsum(g_bytes) - g_bytes)
+    b_entries = np.where((nq > 32) & ~bnd_shared,
+                         np.where(team, WARPS * TEAM_COLS * groups, width),
+                         0)
+    bnd_off = np.where(b_entries > 0, np.cumsum(b_entries) - b_entries, -1)
+    order = np.concatenate([np.flatnonzero(~team), np.flatnonzero(team)])
+    return DpLayout(order.astype(np.int32), n_small, ptr_off, bnd_off,
+                    int(g_bytes.sum()) + WIN_BYTES, int(b_entries.sum()),
+                    warp_share, per_block,
+                    max(per_block * warp_share,
+                        _align16(int(team_need[team].max(initial=0)))),
+                    False)
+
+
+def _on_chip_layout(n: int, need: int, n_sm: int) -> DpLayout:
+    """The layout of n one-warp problems that keep everything in shared
+    memory, the largest needing `need` bytes."""
+    share = _align16(need)
+    per_block = int(min(WARPS, max(1, -(-n // n_sm))))
+    none = np.full(n, -1, np.int64)
+    return DpLayout(np.arange(n, dtype=np.int32), n, none, none, WIN_BYTES,
+                    0, share, per_block, per_block * share, True)
+
+
+def dp_prepare(lay: DpLayout, steps: int, device: torch.device) -> tuple:
+    """What one launch of csrc/dp.cu with layout `lay` needs beside its
+    inputs: the layout's tensors on `device` (order, ptr_off, bnd_off;
+    None when the layout keeps everything in shared memory), the scratch
+    buffers, the outputs (meta, ks, buf; the kernel writes them whole) and
+    the layout."""
+    index = (None, None, None) if lay.all_shared else torch.from_numpy(
+        np.stack([lay.order.astype(np.int64), lay.ptr_off, lay.bnd_off])
+    ).to(device)
+    n = len(lay.order)
+    return (None if lay.all_shared else index[0].to(torch.int32),
+            index[1], index[2],
+            torch.empty(lay.ptr_bytes, dtype=torch.uint8, device=device),
+            torch.empty((max(lay.bnd_entries, 1), 2), dtype=torch.int32,
+                        device=device),
+            torch.empty((n, 4), dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty((n, steps), dtype=torch.int8, device=device), lay)
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return 132
+    if device not in _SM_COUNTS:
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNTS[device]
+
+
+def dp_launch(genome, oriented, q_lo, t_lo, nq, nt, mode, prep: tuple,
+              cfg: AlignConfig, steps: int) -> Tensors:
+    """Launch csrc/dp.cu on the current stream with `dp_prepare`'s
+    buffers; returns its (meta, ks, buf)."""
     lib = _build.load_kernels()
+    order, ptr_off, bnd_off, scratch, bnd, meta, ks, buf, lay = prep
     dev = genome.device
-    n = nq.shape[0]
-    cells = (nq.long() + 1) * (nt.long() + 1)
-    ptr_off = torch.cumsum(cells, 0) - cells
-    scratch = torch.empty(int(cells.sum()), dtype=torch.uint8, device=dev)
-    meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    ks = torch.empty(n, dtype=torch.int32, device=dev)
-    buf = torch.zeros((n, steps), dtype=torch.int8, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         DP_LAUNCHES.count += 1
         rc = lib.mando_dp_fused(
             genome.data_ptr(), oriented.data_ptr(), q_lo.data_ptr(),
             t_lo.data_ptr(), nq.data_ptr(), nt.data_ptr(), mode.data_ptr(),
-            ptr_off.data_ptr(), scratch.data_ptr(), meta.data_ptr(),
-            ks.data_ptr(), buf.data_ptr(), n, steps, cfg.match,
-            cfg.mismatch, cfg.gap_open, cfg.gap_extend, cfg.end_bonus,
-            cfg.zdrop, stream)
+            ptr(order), ptr(ptr_off), ptr(bnd_off), scratch.data_ptr(),
+            bnd.data_ptr(), meta.data_ptr(), ks.data_ptr(), buf.data_ptr(),
+            nq.shape[0], lay.n_small, steps, lay.per_block, lay.warp_share,
+            lay.block_bytes, cfg.match, cfg.mismatch, cfg.gap_open,
+            cfg.gap_extend, cfg.end_bonus, cfg.zdrop, stream)
     _build.check(rc, "mando_dp_fused")
     return meta, ks, buf
 
 
 def _check_dp_args(genome, oriented, q_lo, t_lo, nq, nt, mode,
-                   steps: int) -> None:
+                   steps: int) -> Tuple[int, int]:
+    """Raise on what neither version takes; returns the largest nq and nt
+    (one fetch of a few reductions)."""
     named = {"genome": (genome, torch.uint8),
              "oriented": (oriented, torch.uint8),
              "q_lo": (q_lo, torch.int64), "t_lo": (t_lo, torch.int64),
@@ -202,19 +346,30 @@ def _check_dp_args(genome, oriented, q_lo, t_lo, nq, nt, mode,
         raise ValueError(f"unsupported device {genome.device}")
     if n == 0:
         raise ValueError("no problems")
-    lo = torch.stack([nq.min().long(), nt.min().long(), q_lo.min(),
-                      t_lo.min()]).tolist()
-    hi = torch.stack([nq.max().long(), nt.max().long(),
-                      (q_lo + nq).max(), (t_lo + nt).max(),
-                      (nq.long() + nt).max()]).tolist()
-    if min(lo[:2]) < 1 or hi[0] > MAX_Q_DEVICE or hi[1] > MAX_T_DEVICE:
+    nq64, nt64 = nq.long(), nt.long()
+    (nq_lo, nt_lo, q0_lo, t0_lo, nq_hi, nt_hi, q_end, t_end,
+     walk) = torch.cat([
+         torch.stack([nq64.min(), nt64.min(), q_lo.min(), t_lo.min()]),
+         torch.stack([nq64.max(), nt64.max(), (q_lo + nq64).max(),
+                      (t_lo + nt64).max(), (nq64 + nt64).max()])]).tolist()
+    if min(nq_lo, nt_lo) < 1 or nq_hi > MAX_Q_DEVICE or nt_hi > MAX_T_DEVICE:
         raise ValueError(f"problem sizes outside 1..{MAX_Q_DEVICE} x "
                          f"1..{MAX_T_DEVICE}")
-    if min(lo[2:]) < 0 or hi[2] > oriented.numel() or \
-            hi[3] > genome.numel():
+    if min(q0_lo, t0_lo) < 0 or q_end > oriented.numel() \
+            or t_end > genome.numel():
         raise ValueError("problem slices outside oriented/genome")
-    if steps < hi[4]:
-        raise ValueError(f"steps={steps} < longest walk {hi[4]}")
+    if steps < walk:
+        raise ValueError(f"steps={steps} < longest walk {walk}")
+    return nq_hi, nt_hi
+
+
+def _shared_need(nq, nt):
+    """Shared-memory bytes of a one-warp problem that keeps everything on
+    chip (`dp_layout`): target codes, boundary row, pointer rows. It grows
+    with nq and with nt. Scalars or numpy arrays."""
+    width = nt + 1
+    return _align16(width) + np.where(nq > 32, _align16(8 * width), 0) \
+        + nq * (width + (5 - width) % 8)
 
 
 def dp_fused(genome: torch.Tensor, oriented: torch.Tensor,
@@ -233,12 +388,28 @@ def dp_fused(genome: torch.Tensor, oriented: torch.Tensor,
     ks (n,) int32 and buf (n, steps) int8 (reverse-order step codes
     1 M / 2 I / 3 D, zero past ks). CPU tensors run `dp_fused_plain`,
     CUDA tensors the csrc/dp.cu kernel."""
-    _check_dp_args(genome, oriented, q_lo, t_lo, nq, nt, mode, steps)
+    nq_hi, nt_hi = _check_dp_args(genome, oriented, q_lo, t_lo, nq, nt,
+                                  mode, steps)
     if genome.device.type == "cpu":
         return dp_fused_plain(genome, oriented, q_lo, t_lo, nq, nt, mode,
                               cfg, steps)
-    return _dp_fused_cuda(genome, oriented, q_lo, t_lo, nq, nt, mode, cfg,
-                          steps)
+    return dp_launch(genome, oriented, q_lo, t_lo, nq, nt, mode,
+                     dp_prepare(_launch_layout(nq, nt, nq_hi, nt_hi),
+                                steps, genome.device), cfg, steps)
+
+
+def _launch_layout(nq: torch.Tensor, nt: torch.Tensor, nq_hi: int,
+                   nt_hi: int) -> DpLayout:
+    """The launch's layout. When a problem of the largest nq and the
+    largest nt would stay on chip on one warp, so does every problem (the
+    need grows with both), and no size is fetched: the warp share is that
+    problem's need. Otherwise `dp_layout` on the fetched sizes."""
+    n_sm = _sm_count(nq.device)
+    need = int(_shared_need(nq_hi, nt_hi))
+    if need <= WARP_SHARE_CAP and (nq_hi <= 32 or nt_hi <= 255):
+        return _on_chip_layout(nq.shape[0], need, n_sm)
+    sizes = torch.stack([nq, nt]).cpu().numpy()
+    return dp_layout(sizes[0], sizes[1], n_sm)
 
 
 def device_eligible(nq: np.ndarray, nt: np.ndarray) -> np.ndarray:

@@ -19,17 +19,27 @@
 // The TPU kernel sweeps every matrix row from the last to the first for every
 // tile of problems, with three unrolled transitions a row and masked lane sums
 // for each cell it reads, because its compiler cannot index a lane by a
-// value. None of that binds here: a thread reads m[t][j - offs[t]] directly,
-// so this kernel follows each path and touches no row its walker is not in.
-// What is kept is the transition table, line by line, and the record stream.
+// value. None of that binds here: the walk follows each path and touches no
+// row its walker is not in. What is kept is the transition table, line by
+// line, and the record stream.
 //
-// Layout: one thread per problem, as csrc/poa_walk.cu. The walk is a pointer
-// chase; what bounds it on the H100 is the latency of two dependent loads a
-// transition (the row's window offset, then the cell), not the few bytes they
-// move. Against the step walk it saves the loop iterations and the 8-byte
-// stores of every inserted base after the first of a run. It runs on the
-// forward's stream right behind it, with no host fetch in between: the end
-// rank is found here.
+// What bounds it on the H100: it follows exactly the paths of the step walk
+// (csrc/poa_walk.cu), a pointer chase of one to two round trips to memory a
+// step for a few bytes. So it runs on the step walk's scheme, from the shared
+// csrc/poa_chase.cuh:
+//
+// - A warp a problem, kWarps problems a block; the end rank by 32 lanes and
+//   a warp reduction, on the forward's stream right behind it, with no host
+//   fetch in between.
+// - Diagonal steps are chased inside a 64 x 32 tile of hpack staged by
+//   cp.async; lane x writes the tile's diagonal record x. Each diagonal step
+//   counts as one transition of the 3 x rows bound, and a tile is cut where
+//   its records would pass max_rec.
+// - An insertion run is one record (lane 0), never expanded: against the
+//   step walk this saves the loop iterations and stores of every inserted
+//   base after the first of a run.
+// - Deletions and the op before an insertion take the reference's state
+//   machine, one transition at a time from device memory, all lanes in step.
 //
 // States: 0 H (final op), 1 H0 (pre-insertion op), 2 D1, 3 D2. A cell outside
 // its row's stored window reads as 0. The tier-2 insertion origin is the
@@ -39,11 +49,24 @@
 
 #include <cuda_runtime.h>
 
+#include "poa_chase.cuh"
+
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kNeg = -1000000000;  // the reference's NEG
+constexpr int kWarps = 4;  // problems a block, one a warp
+constexpr int kThreads = kWarps * 32;
 constexpr int kDiag = 0, kDel = 1, kIns = 2;
+
+// (rec0, rec1) of one record, packed through unsigned arithmetic: hi is -1 for
+// a diagonal read outside every window, and the shifts must not overflow a
+// signed int
+__device__ __forceinline__ int2 record(int type, int hi, int lo, int rk) {
+  return make_int2(
+      static_cast<int32_t>(static_cast<uint32_t>(hi) |
+                           static_cast<uint32_t>(type) << 16),
+      static_cast<int32_t>(static_cast<uint32_t>(lo) |
+                           static_cast<uint32_t>(rk + 2) << 16));
+}
 
 __global__ void __launch_bounds__(kThreads) poa_sweep_kernel(
     const int32_t* __restrict__ nn, const uint8_t* __restrict__ ends,
@@ -53,36 +76,52 @@ __global__ void __launch_bounds__(kThreads) poa_sweep_kernel(
     const int32_t* __restrict__ endcol, int32_t* __restrict__ recs,
     int32_t* __restrict__ counts, int64_t n_problems, int n_cap, int W,
     int max_rec) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= n_problems) return;
+  __shared__ int32_t s_tile[kWarps][poa_chase::kTileRows *
+                                    poa_chase::kTileCols];
+  __shared__ int32_t s_off[kWarps][poa_chase::kOffRows];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (b >= n_problems) return;  // a whole warp: nothing below joins warps
+  poa_chase::Stage sg{s_tile[warp], s_off[warp]};
+
   const int64_t rows = static_cast<int64_t>(n_cap) + 1;
-  const int n = nn[b];
-  const int32_t* off_row = offs + b * rows;
-  const int64_t mat = b * rows * W;
+  const poa_chase::Problem pb{offs + b * rows, b * rows * W, W};
+  const int32_t* hp = hpack + pb.mat;
+  poa_chase::NoProbe probe;
 
-  // matrix value at row t, ABSOLUTE column j; 0 outside the stored window
-  auto cell = [&](const int32_t* m, int t, int j) -> int {
-    const int rel = j - off_row[t];
-    return (rel >= 0 && rel < W) ? m[mat + static_cast<int64_t>(t) * W + rel]
-                                 : 0;
-  };
+  int r = poa_chase::end_rank(ends + b * n_cap, endcol + b * rows, nn[b],
+                              lane);
 
-  // end rank: first max of H[t][qlen] over real end ranks t <= n, else 0
-  int r = 0, best = kNeg - 1;
-  for (int t = 1; t <= n; ++t) {
-    const int v = ends[b * n_cap + (t - 1)] ? endcol[b * rows + t] : kNeg - 1;
-    if (v > best) {
-      best = v;
-      r = t;
-    }
-  }
-
-  int32_t* out = recs + b * static_cast<int64_t>(max_rec) * 2;
+  int2* out = reinterpret_cast<int2*>(recs) + b * static_cast<int64_t>(max_rec);
+  // the walk's state is the same in every lane
   int st = 0, j = ql[b], k = 0;
   // A walker leaves its row within three transitions (insertion run -> H0
   // -> deletion entry -> deletion), which bounds the loop on any input.
   for (int64_t left = 3 * rows;
-       left > 0 && k < max_rec && !((r <= 0 && j <= 0) || r < 0); --left) {
+       left > 0 && k < max_rec && !((r <= 0 && j <= 0) || r < 0);) {
+    int hv = 0;
+    bool have_hv = false;
+    if (st == 0 && r >= 1) {
+      // the diagonal steps inside a tile at rows r .. r-63, columns j ..
+      // j-31, each one transition, cut at max_rec
+      const int room = static_cast<int>(
+          min(left, static_cast<int64_t>(max_rec - k)));
+      const poa_chase::Chase ch =
+          poa_chase::chase_diagonals(sg, pb, hp, r, j, room, lane, probe);
+      if (lane < ch.x)
+        out[k + lane] = record(kDiag, j - 1 - lane, 0, ch.my_row - 1);
+      r = ch.r;
+      j -= ch.x;
+      k += ch.x;
+      left -= ch.x;
+      if (!ch.have_hv) continue;
+      hv = ch.hv;
+      have_hv = true;
+    }
+
+    // one transition of the reference's table, every lane in step, lane 0
+    // storing
     int type = -1, hi = 0, lo = 0, rk = r - 1;
     if (st <= 1) {
       if (r == 0) {  // boundary row: the rest of the query is one run
@@ -94,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) poa_sweep_kernel(
         st = 0;
         j = 0;
       } else {
-        const int hv = cell(hpack, r, j);
+        if (!have_hv) hv = pb.cell(hpack, r, j);
         const int opv = st == 1 ? (hv >> 3) & 7 : hv & 7;
         if (opv == 0) {  // diagonal into node r-1
           type = kDiag;
@@ -103,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) poa_sweep_kernel(
           st = 0;
           --j;
         } else if (opv == 1 || opv == 3) {  // insertion run to its origin
-          const unsigned ov = static_cast<unsigned>(cell(opack, r, j));
+          const unsigned ov = static_cast<unsigned>(pb.cell(opack, r, j));
           const int origin = opv == 1 ? static_cast<int>(ov & 0xFFFFu)
                                       : static_cast<int>(ov >> 16);
           if (j >= 1) {
@@ -119,29 +158,25 @@ __global__ void __launch_bounds__(kThreads) poa_sweep_kernel(
         }
       }
     } else {  // node r-1 deleted, follow the pointer
-      const int dptr = cell(st == 2 ? d1p : d2p, r, j);
+      const int dptr = pb.cell(st == 2 ? d1p : d2p, r, j);
       type = kDel;
       r = dptr >> 1;
       if ((dptr & 1) == 0) st = 0;
     }
     if (type >= 0) {
-      // packed through unsigned arithmetic: hi is -1 for a diagonal read
-      // outside every window, and the shifts must not overflow a signed int
-      out[2 * k] = static_cast<int32_t>(static_cast<uint32_t>(hi) |
-                                        static_cast<uint32_t>(type) << 16);
-      out[2 * k + 1] = static_cast<int32_t>(
-          static_cast<uint32_t>(lo) | static_cast<uint32_t>(rk + 2) << 16);
+      if (lane == 0) out[k] = record(type, hi, lo, rk);
       ++k;
     }
+    --left;
   }
-  counts[b] = k;
+  if (lane == 0) counts[b] = k;
 }
 
 }  // namespace
 
 // Launch on `stream` for n problems. The caller allocates recs (n, max_rec,
-// 2) and counts (n); the matrices are mando_poa_fwd's. Returns
-// cudaGetLastError() after the launch.
+// 2) and counts (n) and need fill neither; the matrices are mando_poa_fwd's.
+// Returns cudaGetLastError() after the launch.
 extern "C" int mando_poa_sweep(const void* nn, const void* ends,
                                const void* ql, const void* hpack,
                                const void* opack, const void* d1p,
@@ -150,7 +185,7 @@ extern "C" int mando_poa_sweep(const void* nn, const void* ends,
                                int64_t n, int n_cap, int W, int max_rec,
                                void* stream) {
   if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    const unsigned blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
     poa_sweep_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(nn), static_cast<const uint8_t*>(ends),

@@ -796,9 +796,9 @@ def _poa_sweep_cuda(nn, ends, ql, mats: Mats):
     dev = nn.device
     B, rows, W = hpack.shape
     maxrec = sweep_record_cap(rows - 1)
-    # entries at and beyond counts[b] are never written
+    # entries at and beyond counts[b] are never written; every count is
     recs = torch.empty((B, maxrec, 2), dtype=torch.int32, device=dev)
-    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         POA_SWEEP_LAUNCHES.count += 1

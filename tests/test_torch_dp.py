@@ -327,3 +327,197 @@ def test_cuda_kernel_full_envelope(cuda_device):
         assert not got[3].any()
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------ the kernel's layout
+
+def test_layout_keeps_the_main_path_on_chip():
+    """Gap fills of the main path's sizes (at most 45 query rows, 173
+    target bases) keep pointers and boundary rows in shared memory: no
+    scratch but the walk window's slack, no team, one warp a problem."""
+    rng = np.random.default_rng(2)
+    nq = rng.integers(1, 46, 5000)
+    nt = rng.integers(1, 174, 5000)
+    lay = kernels.dp_layout(nq, nt)
+    assert lay.all_shared and lay.per_block == kernels.WARPS
+    assert lay.block_bytes == kernels.WARPS * lay.warp_share
+    assert lay.n_small == 5000 and (lay.order == np.arange(5000)).all()
+    assert (lay.ptr_off == -1).all() and (lay.bnd_off == -1).all()
+    assert lay.ptr_bytes == kernels.WIN_BYTES and lay.bnd_entries == 0
+    assert lay.warp_share % 16 == 0
+    assert lay.warp_share <= kernels.WARP_SHARE_CAP
+
+
+@pytest.mark.parametrize("nq,nt,kind", [
+    (32, 300, "shared"),          # one strip: no boundary row
+    (32, 2303, "spill"),
+    (33, 150, "shared"),          # two strips, boundary row in shared
+    (40, 400, "spill"),           # pointers spill, boundary row stays
+    (64, 1500, "spill+bnd"),      # both spill, two strips: one warp
+    (64, 900, "spill"),           # two strips under TEAM_STEPS: one warp
+    (65, 2303, "team"),           # three strips on a block
+    (100, 2100, "team"),          # four strips on a block of WARPS warps
+    (300, 1000, "team"),          # more strips than warps: buffers reused
+    (2048, 2303, "team"),
+    (2048, 60, "spill"),          # tall and narrow: one warp
+    (2048, 700, "team"),
+])
+def test_layout_classes(nq, nt, kind):
+    lay = kernels.dp_layout(np.array([3, nq]), np.array([5, nt]))
+    strips = -(-nq // 32)
+    groups = -(-(nt + 1) // kernels.TEAM_COLS)
+    step_bytes = kernels.TEAM_COLS * 32 * (groups + 31) if kind == "team" \
+        else 32 * (nt + 32)
+    got = ("team" if lay.n_small == 1 else
+           "shared" if lay.ptr_off[1] < 0 else
+           "spill" if lay.bnd_off[1] < 0 else "spill+bnd")
+    assert got == kind
+    assert lay.order.tolist() == [0, 1]
+    assert lay.warp_share <= kernels.WARP_SHARE_CAP
+    assert lay.ptr_off[0] == -1 and lay.bnd_off[0] == -1
+    if kind != "shared":
+        assert lay.ptr_off[1] == 0
+        assert lay.ptr_bytes == strips * step_bytes + kernels.WIN_BYTES
+    if kind in ("spill+bnd", "team"):
+        assert lay.bnd_entries == (
+            kernels.WARPS * kernels.TEAM_COLS * groups if kind == "team"
+            else nt + 1)
+    assert lay.all_shared == (kind == "shared")
+    assert lay.per_block == 1       # two problems: a block each
+    if kind == "team":
+        assert lay.block_bytes >= kernels.TEAM_FLAGS + 8 * nq + nt + 1 + \
+            kernels.WIN_BYTES
+
+
+@pytest.mark.parametrize("n,n_sm,per_block", [(60, 132, 1), (500, 132, 4),
+                                               (11542, 132, 8), (9, 4, 3)])
+def test_layout_spreads_few_problems_over_the_sms(n, n_sm, per_block):
+    """A launch of few one-warp problems gives each SM a block before it
+    puts several problems in one."""
+    lay = kernels.dp_layout(np.full(n, 20), np.full(n, 25), n_sm)
+    assert lay.per_block == per_block
+    assert lay.block_bytes == per_block * lay.warp_share
+
+
+def test_layout_offsets_do_not_overlap():
+    """Scratch offsets follow the problems' order, each region as large as
+    its problem needs; team problems come last in the launch order."""
+    rng = np.random.default_rng(4)
+    nq = rng.integers(1, 2049, 60)
+    nt = rng.integers(1, 2304, 60)
+    lay = kernels.dp_layout(nq, nt)
+    team = lay.order[lay.n_small:]
+    assert sorted(lay.order.tolist()) == list(range(60))
+    assert (np.diff(lay.order[:lay.n_small]) > 0).all()
+    assert (-(-nq[team] // 32) > 1).all()
+    spill = np.flatnonzero(lay.ptr_off >= 0)
+    is_team = np.isin(spill, team)
+    groups = -(-(nt[spill] + 1) // kernels.TEAM_COLS)
+    size = -(-nq[spill] // 32) * 32 * np.where(
+        is_team, kernels.TEAM_COLS * (groups + 31), nt[spill] + 32)
+    ends = lay.ptr_off[spill] + size
+    assert (lay.ptr_off[spill][1:] == ends[:-1]).all()
+    assert lay.ptr_bytes == ends[-1] + kernels.WIN_BYTES
+    assert (lay.ptr_off[team] >= 0).all() and (lay.bnd_off[team] >= 0).all()
+
+
+# ------------------------------------------------ the kernel's new paths
+
+def _solve_both(problems, cfg, device):
+    probs, oriented, read_off, genome = _descriptors(problems)
+    before = kernels.DP_LAUNCHES.count
+    got = kernels.solve_dp_fused(probs, oriented, read_off,
+                                 torch.from_numpy(genome).to(device), cfg)
+    assert kernels.DP_LAUNCHES.count > before
+    want = kernels.solve_dp_fused(probs, oriented, read_off,
+                                  torch.from_numpy(genome), cfg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    return want
+
+
+def _shaped(rng, nq, nt, mode, similar=True):
+    t = rng.integers(0, 4, nt).astype(np.uint8)
+    if similar:
+        q = np.concatenate([t, rng.integers(0, 4, max(nq - nt, 0))])[:nq]
+        q = q.astype(np.uint8)
+        hit = rng.random(nq) < 0.08
+        q[hit] = rng.integers(0, 4, int(hit.sum()))
+    else:
+        q = rng.integers(0, 4, nq).astype(np.uint8)
+    return DpProblem(q, t, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bonus,zdrop", [(12, 0), (0, 40)])
+def test_cuda_shared_and_scratch_pointers_in_one_launch(cuda_device, bonus,
+                                                        zdrop):
+    """Every layout class of `test_layout_classes` in one launch, beside
+    small problems, in each mode: strip boundaries (32, 33, 64, 65 rows),
+    pointers and boundary rows in shared memory and in scratch, teams of
+    several warps with more strips than warps."""
+    rng = np.random.default_rng(41)
+    shapes = [(32, 300), (32, 2303), (33, 150), (40, 400), (64, 1500),
+              (64, 900), (65, 2303), (100, 2100), (300, 1000), (2048, 60),
+              (5, 7), (20, 30)]
+    problems = [_shaped(rng, nq, nt, mode, k % 2 == 0)
+                for k, (nq, nt) in enumerate(shapes) for mode in MODES]
+    lay = kernels.dp_layout(np.array([len(p.q) for p in problems]),
+                            np.array([len(p.t) for p in problems]))
+    assert lay.n_small < len(problems)
+    assert (lay.ptr_off < 0).any() and (lay.ptr_off >= 0).any()
+    assert (lay.bnd_off >= 0).any()
+    _solve_both(problems, AlignConfig(end_bonus=bonus, zdrop=zdrop),
+                cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut_at", [45, 100, 1000])
+def test_cuda_zdrop_cut_inside_a_strip(cuda_device, cut_at):
+    """A query that follows its target for cut_at rows and then turns
+    random: the zdrop latch trips inside a strip (and, at 1000 rows, in a
+    team's strip), and the best cell lies before it."""
+    rng = np.random.default_rng(cut_at)
+    problems = []
+    for mode in MODES:
+        t = rng.integers(0, 4, 1200).astype(np.uint8)
+        q = np.concatenate([t[:cut_at], rng.integers(0, 4, 1200 - cut_at)])
+        problems.append(DpProblem(q.astype(np.uint8), t, mode))
+    meta, *_ = _solve_both(problems, AlignConfig(zdrop=30), cuda_device)
+    ext = meta[1:]
+    assert (ext[:, 0] >= cut_at - 2).all() and (ext[:, 0] <= cut_at + 5).all()
+    assert (ext[:, 0] % 32 != 0).any()
+
+
+def test_launch_layout_from_the_largest_sizes():
+    """The wrapper learns the largest nq and nt from its checks. When a
+    problem of both would stay on chip on one warp, so does every problem,
+    and the launch's layout is `dp_layout`'s without fetching the sizes,
+    its warp share that problem's need; otherwise it is `dp_layout`'s."""
+    rng = np.random.default_rng(8)
+    n = 300
+    nq = torch.from_numpy(rng.integers(1, 46, n).astype(np.int32))
+    nt = torch.from_numpy(rng.integers(1, 174, n).astype(np.int32))
+    genome = torch.zeros(4096, dtype=torch.uint8)
+    zeros = torch.zeros(n, dtype=torch.int64)
+    args = dict(genome=genome, oriented=genome, q_lo=zeros, t_lo=zeros,
+                nq=nq, nt=nt, mode=torch.zeros(n, dtype=torch.uint8))
+    hi = kernels._check_dp_args(**args, steps=300)
+    assert hi == (int(nq.max()), int(nt.max()))
+    got = kernels._launch_layout(nq, nt, *hi)
+    want = kernels.dp_layout(nq.numpy(), nt.numpy())
+    assert got.all_shared and want.all_shared
+    assert got.warp_share == kernels._align16(kernels._shared_need(*hi)) \
+        >= want.warp_share
+    for name in ("order", "n_small", "ptr_off", "bnd_off", "ptr_bytes",
+                 "bnd_entries", "per_block"):
+        assert np.array_equal(getattr(got, name), getattr(want, name))
+    for big_q, big_t in ((40, 300), (30, 2000)):
+        nq2, nt2 = nq.clone(), nt.clone()
+        nq2[7], nt2[7] = big_q, big_t
+        got = kernels._launch_layout(nq2, nt2, int(nq2.max()),
+                                     int(nt2.max()))
+        want = kernels.dp_layout(nq2.numpy(), nt2.numpy())
+        assert not got.all_shared
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)

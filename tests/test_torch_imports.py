@@ -7,6 +7,7 @@ check runs in a fresh interpreter."""
 import ast
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -156,3 +157,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_kernels()
+
+
+def test_build_is_keyed_by_headers(monkeypatch, tmp_path):
+    """An edited device header (csrc/*.cuh) names another library, so the
+    kernels that include it are rebuilt; headers are hashed, not compiled."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert [os.path.basename(h) for h in _build.headers()] == \
+        ["poa_chase.cuh"]
+    assert all(s.endswith(".cu") for s in _build.sources())
+    path = _build.library_path()
+    header = csrc / "poa_chase.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != path

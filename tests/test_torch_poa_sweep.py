@@ -387,3 +387,138 @@ def test_cuda_consensus_sweep_matches_native(cuda_device, monkeypatch):
         (before[0] + len(obs.chunks), before[1])
     for reads, g in zip(sets, got):
         assert g.tolist() == native_poa_consensus(reads, params).tolist()
+
+
+# ------------------------------------------- hand-made and random matrices
+
+def _ladder_problem(n_cap, qlen, off):
+    """One problem whose rows n_cap .. 1 are a ladder of diagonal steps
+    (row r into row r - 1) and whose row 1 jumps back up to row n_cap (a
+    predecessor that is not an earlier row): the walk climbs the ladder
+    again and again, 32 diagonal steps a tile, until a bound cuts it."""
+    W = 256
+    rows = n_cap + 1
+    node = np.arange(rows) - 1 + 2                  # row r: into row r - 1
+    node[1] = n_cap + 2                             # row 1: up to row n_cap
+    hpack = np.zeros((1, rows, W), np.int32)
+    hpack[0, 1:] = (node[1:] << 6)[:, None]         # op 0: diagonal
+    zeros = np.zeros_like(hpack)
+    offs = np.full((1, rows), off, np.int32)
+    endcol = np.full((1, rows), NEG, np.int32)
+    endcol[0, n_cap] = 5
+    ends = np.zeros((1, n_cap), np.uint8)
+    ends[0, n_cap - 1] = 1
+    mats = tuple(torch.from_numpy(m) for m in
+                 (hpack, zeros, zeros.copy(), zeros.copy(), offs, endcol))
+    return (torch.tensor([n_cap], dtype=torch.int32), torch.from_numpy(ends),
+            torch.tensor([qlen], dtype=torch.int32), mats)
+
+
+@pytest.mark.parametrize("n_cap,cut", [
+    (64, K.sweep_record_cap(64)),   # max_rec cuts a tile's records
+    (4, 3 * 5),                     # 3 x rows transitions cut first
+])
+def test_sweep_bounds_cut_a_ladder(n_cap, cut):
+    nn, ends, ql, mats = _ladder_problem(n_cap, 400, 145)
+    recs, counts = K.poa_sweep_plain(nn, ends, ql, mats)
+    assert int(counts[0]) == cut
+    live = recs[0, :cut].numpy()
+    assert (live[:, 0] >> 16 == K.REC_DIAG).all()
+    assert np.array_equal(live[:, 0] & 0xFFFF, np.arange(399, 399 - cut, -1))
+
+
+def _random_mats(seed, B, n_cap, W, acyclic):
+    """Matrices of random cells over query columns 0..W-1: mostly diagonal
+    steps a row or a few back (runs inside a tile), some far back or, in a
+    tenth of the rows, reads outside a shifted window; every other op, both
+    insertion tiers with any origin, deletion pointers with and without
+    the extension bit. With `acyclic` every pointer names an earlier row
+    and the step walk ends; without, paths may loop until the record
+    walk's bounds cut them."""
+    rng = np.random.default_rng(seed)
+    rows = n_cap + 1
+    shape = (B, rows, W)
+    r = np.arange(rows)[None, :, None]
+    op = rng.choice(8, size=shape, p=[0.86] + [0.02] * 7)
+    op0 = rng.choice(8, size=shape, p=[0.44] + [0.08] * 7)
+    near = r - rng.geometric(0.6, shape)
+    far = (rng.random(shape) * (r if acyclic else rows + 1)).astype(np.int64)
+    prev = np.where(rng.random(shape) < 0.9, near, far)
+    hpack = (op | op0 << 3 | np.maximum(prev + 2, 0) << 6).astype(np.int32)
+    origin = rng.integers(0, W, (2,) + shape)
+    opack = (origin[0] | origin[1] << 16).astype(np.uint32).view(np.int32)
+    back = rng.random((2,) + shape) * (r if acyclic else rows)
+    dptr = (back.astype(np.int64) << 1 | rng.integers(0, 2, (2,) + shape))
+    offs = np.where(rng.random((B, rows)) < 0.1,
+                    rng.integers(-W // 2, W // 2, (B, rows)), 0)
+    endcol = rng.integers(-50, 50, (B, rows)).astype(np.int32)
+    ends = (rng.random((B, n_cap)) < 0.3).astype(np.uint8)
+    nn = rng.integers(0, n_cap + 1, B).astype(np.int32)
+    ql = rng.integers(W // 2, W, B).astype(np.int32)
+    mats = tuple(torch.from_numpy(np.ascontiguousarray(m, np.int32))
+                 for m in (hpack, opack, dptr[0], dptr[1], offs, endcol))
+    return (torch.from_numpy(nn), torch.from_numpy(ends),
+            torch.from_numpy(ql), mats)
+
+
+def test_random_matrices_stay_in_bounds():
+    """The plain walks on random cells: the record walk stops within
+    max_rec records and writes every record type; on acyclic cells the
+    step walk ends within its max_steps."""
+    nn, ends, ql, mats = _random_mats(7, 12, 40, 64, acyclic=False)
+    recs, counts = K.poa_sweep_plain(nn, ends, ql, mats)
+    assert int(counts.max()) <= K.sweep_record_cap(40)
+    types = np.concatenate([recs[b, :k, 0].numpy() >> 16 & 3
+                            for b, k in enumerate(counts.tolist())])
+    assert {K.REC_DIAG, K.REC_DEL, K.REC_INS} <= set(types.tolist())
+    nn, ends, ql, mats = _random_mats(8, 12, 40, 64, acyclic=True)
+    _buf, ks = K.poa_walk_plain(nn, ends, ql, mats, 64)
+    assert 0 < int(ks.max()) <= 40 + 64 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cap,cut", [(64, K.sweep_record_cap(64)),
+                                       (4, 3 * 5)])
+def test_cuda_sweep_bounds_cut_a_ladder(cuda_device, n_cap, cut):
+    nn, ends, ql, mats = _ladder_problem(n_cap, 400, 145)
+    _recs, counts = _assert_kernel_matches_plain(
+        nn.to(cuda_device), ends.to(cuda_device), ql.to(cuda_device),
+        tuple(m.to(cuda_device) for m in mats))
+    assert int(counts[0]) == cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_cap,W", [(1, 8, 64), (2, 70, 256),
+                                          (3, 300, 128)])
+def test_cuda_sweep_random_matrices(cuda_device, seed, n_cap, W):
+    """Random cells: tiles left every way, insertion runs to any origin
+    (across a tile edge or forward), deletion chains, loops cut by max_rec
+    and by the 3 x rows bound; the kernel's records equal the plain
+    version's, record for record."""
+    args = _random_mats(seed, 40, n_cap, W, acyclic=False)
+    recs, counts = _assert_kernel_matches_plain(
+        *(a.to(cuda_device) for a in args[:3]),
+        tuple(m.to(cuda_device) for m in args[3]))
+    types = np.concatenate([recs[b, :k, 0] >> 16 & 3
+                            for b, k in enumerate(counts)])
+    assert {K.REC_DIAG, K.REC_DEL, K.REC_INS} <= set(types.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_cap,W", [(4, 8, 64), (5, 70, 256),
+                                          (6, 300, 128)])
+def test_cuda_step_walk_random_matrices(cuda_device, seed, n_cap, W):
+    """The step walk on the shared chase, on random acyclic cells: kernel
+    == plain, for the step walk and the record walk. (Their streams need
+    not agree here: an insertion origin at or past its column, which the
+    forward never writes, sends the two walks different ways.)"""
+    nn, ends, ql, mats = _random_mats(seed, 40, n_cap, W, acyclic=True)
+    nn, ends, ql = (a.to(cuda_device) for a in (nn, ends, ql))
+    mats = tuple(m.to(cuda_device) for m in mats)
+    l_cap = W
+    buf, ks = K.poa_walk(nn, ends, ql, mats, l_cap)
+    want, want_ks = K.poa_walk_plain(nn, ends, ql, mats, l_cap)
+    assert torch.equal(ks, want_ks)
+    for b, k in enumerate(want_ks.tolist()):
+        assert torch.equal(buf[b, :k], want[b, :k]), b
+    _assert_kernel_matches_plain(nn, ends, ql, mats)

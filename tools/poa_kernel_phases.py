@@ -4,9 +4,11 @@ kernel spend their cycles, on one CUDA card.
     python3 tools/poa_kernel_phases.py
 
 Copies mandalorion_tpu_torch/csrc into a temporary directory, inserts
-clock64() readings between the phases of csrc/poa_fwd.cu's row loop and
-of csrc/poa_walk.cu's tile loop (problem 0 prints its sums with the
-device's printf when it ends), builds that copy with the package's own
+clock64() readings between the phases of csrc/poa_fwd.cu's row loop and,
+through a probe that takes the place of the one that does nothing, at the
+marks of the step walk's tile loop (csrc/poa_walk.cu and the chase in
+csrc/poa_chase.cuh; problem 0 prints its sums with the device's printf
+when it ends), builds that copy with the package's own
 `_build` module, and runs both kernels once on the last round's chunk of a
 consensus of 8 isoforms x 40 reads x about 3 kb (adaptive band, W 256).
 The readings cost cycles themselves and keep the compiler from moving
@@ -74,20 +76,24 @@ FWD_PRINT = (
     + "".join(f", tacc[{i}]" for i in range(len(FWD_PHASES))) + ");\n")
 
 WALK_PHASES = ("other steps", "offsets", "tile copies", "chase", "flush")
+# the walk's phases are the marks of its probe (csrc/poa_chase.cuh): a probe
+# that counts cycles takes the place of the one that does nothing
+WALK_PROBE = (
+    "struct ClockProbe {\n  long long tacc[5], tlast;\n"
+    "  __device__ ClockProbe() {\n    tlast = clock64();\n"
+    "    for (int i = 0; i < 5; ++i) tacc[i] = 0;\n  }\n"
+    "  __device__ void mark(int x) {\n    const long long now = clock64();\n"
+    "    tacc[x] += now - tlast;\n    tlast = now;\n  }\n};\n")
 WALK_EDITS = (
-    ("#include <cuda_runtime.h>\n", None),
-    ("  int off_lo = 0, off_hi = -1;", SETUP + "  int n_tiles = 0;\n"),
-    ("      __syncwarp();  // the tile's readers are done\n",
-     "      TICK(0)\n      ++n_tiles;\n"),
-    ("      // The tile's rows' offsets, two a lane", "      TICK(1)\n"),
-    ("      const int room = max_steps - k;\n", "      TICK(2)\n"),
-    ("      if (lane < x) out[k + lane] =", "      TICK(3)\n"),
-    ("      if (!have_hv) continue;", "      TICK(4)\n"),
+    ('#include "poa_chase.cuh"\n', None),
+    ("  poa_chase::NoProbe probe;\n", None),
+    ("      probe.mark(0);\n", "      ++n_tiles;\n"),
     ("  if (lane == 0) ks[b] = k;",
      '  if (b == 0 && lane == 0) printf("walk steps %d tiles %d cycles %lld '
      'phases' + " %lld" * len(WALK_PHASES) + '\\n", k, n_tiles, '
      'clock64() - tstart'
-     + "".join(f", tacc[{i}]" for i in range(len(WALK_PHASES))) + ");\n"),
+     + "".join(f", probe.tacc[{i}]" for i in range(len(WALK_PHASES)))
+     + ");\n"),
 )
 
 
@@ -119,9 +125,14 @@ def instrument(csrc: str) -> None:
     path = os.path.join(csrc, "poa_walk.cu")
     with open(path) as fh:
         src = fh.read()
-    for line, text in WALK_EDITS[1:]:
+    for line, text in WALK_EDITS[2:]:
         src = insert_before(src, line, text)
-    src = src.replace(WALK_EDITS[0][0], WALK_EDITS[0][0] + PRELUDE)
+    src = insert_before(src, WALK_EDITS[0][0], "").replace(
+        WALK_EDITS[0][0], WALK_EDITS[0][0] + "#include <cstdio>\n"
+        + WALK_PROBE)
+    src = insert_before(src, WALK_EDITS[1][0], "").replace(
+        WALK_EDITS[1][0], "  ClockProbe probe;\n  int n_tiles = 0;\n"
+        "  const long long tstart = probe.tlast;\n")
     with open(path, "w") as fh:
         fh.write(src)
 
