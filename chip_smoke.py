@@ -2,7 +2,12 @@
 
 Run from the repository root, no install needed:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--chain-only]
+
+--chain-only runs phases 1 and 2 and the chain's part of phase 3 (its
+sets, and the first read batch of phase 4's dataset) and prints no result
+line: a copy of this script run inside another tree of the port times
+that tree's chain route with the same code and inputs.
 
 Phases, in order; any failure raises and exits non-zero, and the last
 line is printed only when every phase passed:
@@ -21,8 +26,13 @@ line is printed only when every phase passed:
      blocks of warps on one problem) with zdrop cuts inside a strip; and
      the real descriptors of the slice's first read batch, whose pointers
      must all stay in shared memory;
-   - chain: random 512-segment candidates and the real seed-stage output
-     of that batch;
+   - chain: random 512-segment candidates, a mixed batch of 3,000 short
+     candidates and six of 300..512 segments, tie-heavy candidates
+     (duplicated segments, equal-cost predecessors), and the real
+     seed-stage output of that batch; each timed as the route's call from
+     numpy arrays to fetched rows (host clock), the chain_rows call and
+     the launch alone (CUDA events), with its bound from the bytes the
+     work needs beside the padded count;
    - poa_fwd, poa_walk, poa_sweep: (a) real chunks of a consensus run of
      16 isoforms x 20 reads x about 2 kb at the first, a middle and the
      last round, adaptive band; (b) the same chunks under the static
@@ -115,6 +125,10 @@ ARTIFACTS = ("Isoforms.filtered.fasta", "Isoforms.filtered.clean.psl",
              os.path.join("tmp", "reads2isoforms.txt"))
 ROW_CLASSES = ((1, 8), (9, 32), (33, 128), (129, 512), (513, 2048))
 WIDTH_CLASSES = ((1, 127), (128, 255), (256, 511), (512, 1023), (1024, 2303))
+# the chain's sets beside the main path (chain_random_sets) and their
+# scoring window
+CHAIN_SEED = 6
+CHAIN_KW = dict(min_intron=30, max_intron=400_000)
 # the POA cases (a)/(b), (c) and (d) of the module docstring
 POA_SETS = dict(n_iso=16, n_reads=20, length=2000, err=0.03)
 POA_LONG_EDGE = dict(length=2000, insert=320, band=340)
@@ -469,9 +483,28 @@ def check_dp_layouts(device) -> int:
     return err
 
 
-def check_chain_random(rng, device) -> int:
-    """512-segment candidates: sorted collinear segments with indel and
-    intron gaps, overlaps and off-diagonal noise, cov <= span."""
+def collinear_rows(n_seg, draw, msb: int = 512):
+    """(qs, qe, ts, te, cov) as (n, msb) int32 rows, zero padding: per
+    candidate n_seg[b] collinear segments, each placed after the one
+    before by draw(k)'s steps, so with indel and intron gaps, overlaps
+    and repeats; draw(k) gives k segments' (length, q step, t step, cov
+    fraction)."""
+    n = len(n_seg)
+    qs, qe, ts, te, cov = (np.zeros((n, msb), np.int32) for _ in range(5))
+    for b in range(n):
+        k = int(n_seg[b])
+        ln, dq, dt, frac = draw(k)
+        q = np.maximum(np.cumsum(dq + np.concatenate([[0], ln[:-1]])), 0)
+        t = np.maximum(np.cumsum(dt + np.concatenate([[0], ln[:-1]])), 0)
+        qs[b, :k], qe[b, :k], ts[b, :k], te[b, :k] = q, q + ln, t, t + ln
+        cov[b, :k] = np.maximum(15, (ln * frac).astype(np.int32))
+    return qs, qe, ts, te, cov
+
+
+def chain_512_set(rng):
+    """64 candidates, 56 of 512 segments and 8 of under 64, as (segs,
+    n_seg): sorted collinear segments with indel and intron gaps, overlaps
+    and off-diagonal noise, cov <= span."""
     n, msb = 64, 512
     qs, qe, ts, te, cov = (np.zeros((n, msb), np.int32) for _ in range(5))
     n_seg = np.full(n, msb, np.int32)
@@ -486,17 +519,119 @@ def check_chain_random(rng, device) -> int:
             qs[b, i], qe[b, i], ts[b, i], te[b, i] = q, q + ln, t, t + ln
             cov[b, i] = int(rng.integers(15, ln + 1))
             q, t = q + ln, t + ln
-    args = [torch.from_numpy(a).to(device) for a in (qs, qe, ts, te, cov,
-                                                     n_seg)]
-    kw = dict(min_intron=30, max_intron=400_000)
-    got = chain_kernel.chain_rows(*args, **kw)
-    want = chain_kernel.chain_rows_plain(*args, **kw)
-    e = max_abs_err([got], [want])
-    if e:
-        raise AssertionError(f"chain kernel != plain on random segments: "
-                             f"max err {e}")
-    log(f"chain: {n} random candidates x {msb} lanes, kernel == plain")
-    return e
+    return (qs, qe, ts, te, cov), n_seg
+
+
+def chain_random_sets(rng):
+    """The chain kernel's other sets beside the main path, as (segs,
+    n_seg): "mixed": 3,000 candidates of 1..40 segments and six of
+    300..512, in one launch of 512 lanes (does the longest candidate set
+    the time?); "tie-heavy": 600 candidates of duplicated segments and
+    equal-cost predecessors (equal lengths and cov, introns inside one
+    power of two), up to 64 segments and a few of 300."""
+    def random_draw(k):
+        return (rng.integers(15, 60, k), rng.integers(-10, 15, k),
+                rng.choice([-10, 0, 3, 40, 300, 5000, 60000], k),
+                rng.uniform(0.3, 1.0, k))
+
+    def tied_draw(k):
+        # each step repeats the segment before it (0), or moves on by an
+        # intron of 4,096..8,191 bases (one cost) or by 3 (an indel)
+        dup = rng.random(k) < 0.5
+        ln = np.full(k, 30)
+        step_t = np.where(dup, -30, rng.choice([4100, 5000, 8000, 3], k))
+        step_q = np.where(dup, -30, np.where(step_t == 3, 3, 0))
+        step_q[:1] = step_t[:1] = 0
+        return ln, step_q, step_t, np.ones(k)
+
+    mixed = np.concatenate([rng.integers(1, 41, 3000),
+                            [300, 350, 400, 450, 500, 512]]).astype(np.int32)
+    rng.shuffle(mixed)
+    tied = np.concatenate([rng.integers(0, 65, 596),
+                           [300, 300, 1, 0]]).astype(np.int32)
+    return {"mixed": (collinear_rows(mixed, random_draw), mixed),
+            "tie-heavy": (collinear_rows(tied, tied_draw), tied)}
+
+
+def chain_bounds(n_seg: np.ndarray, msb: int):
+    """The chain's bounds, ((ms, by) from the bytes the work needs: 20 B a
+    real segment, n_seg, the rows; (ms, by) from the padded count: every
+    lane of the five (n, msb) planes), the same operations for both."""
+    s = np.asarray(n_seg, np.int64)
+    out = 4 * len(s) + len(s) * (msb + 3) * 2
+    ops = float((s * (s - 1) // 2).sum()) * CHAIN_OPS_PER_PAIR
+    return (bound(int(s.sum()) * 20 + out, ops, PEAK_F32_OPS_S),
+            bound(5 * len(s) * msb * 4 + out, ops, PEAK_F32_OPS_S))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean wall time of fn() on the host clock; fn synchronizes."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def time_chain(what, segs, n_seg, kw, device, reps):
+    """The chain on one set: the kernel (chain_rows on the card's tensors,
+    in the route's order) and the route (chain_batch_rows from the numpy
+    arrays) against chain_rows_plain, exactly; then three figures: the
+    route's call from the numpy arrays to the fetched rows (host clock),
+    the chain_rows call and the launch alone (_chain_rows_cuda), by CUDA
+    events; the plain version's time; both bounds. A chain module without
+    `chain_order` (an older tree of the port, under --chain-only) is
+    called without the order. Returns a dict with the route's rows under
+    "rows"."""
+    n = len(n_seg)
+    msb = chain_kernel.segment_lanes(int(n_seg.max()))
+    args = [torch.from_numpy(np.ascontiguousarray(a[:n, :msb])).to(device)
+            for a in segs]
+    args.append(torch.from_numpy(np.ascontiguousarray(n_seg, np.int32)).to(
+        device))
+    ordered = {} if not hasattr(chain_kernel, "chain_order") else dict(
+        order=args[-1].new_tensor(chain_kernel.chain_order(n_seg)))
+    rows = chain_kernel.chain_rows(*args, **kw, **ordered)
+    plain = chain_kernel.chain_rows_plain(*args, **kw)
+    route = chain_kernel.chain_batch_rows(*segs, n_seg, n, device=device,
+                                          **kw)
+    err = max(max_abs_err([rows], [plain]),
+              max_abs_err([torch.from_numpy(route)], [plain.cpu()]))
+    if err:
+        raise AssertionError(f"chain kernel != plain on {what}: max err "
+                             f"{err}")
+    plain_ms = cuda_ms(lambda: chain_kernel.chain_rows_plain(*args, **kw), 1)
+    route_ms = host_ms(lambda: chain_kernel.chain_batch_rows(
+        *segs, n_seg, n, device=device, **kw), reps)
+    call_ms = cuda_ms(lambda: chain_kernel.chain_rows(*args, **kw, **ordered),
+                      reps)
+    launch_ms = cuda_ms(lambda: chain_kernel._chain_rows_cuda(
+        *args, **kw, **ordered), reps)
+    need, padded = chain_bounds(n_seg, msb)
+    log(f"chain: {what}, {n} candidates x {msb} lanes ({int(n_seg.sum())} "
+        f"segments, longest {int(n_seg.max())}), kernel == plain, route == "
+        f"plain; route call {route_ms:.3f} ms (host clock), chain_rows "
+        f"{call_ms:.3f} ms, launch alone {launch_ms:.3f} ms (CUDA events), "
+        f"plain {plain_ms:.3f} ms; bound {need[0]:.6f} ms by {need[1]}, "
+        f"20 B a real segment (share of it: launch alone "
+        f"{100 * need[0] / launch_ms:.3f}%, the call "
+        f"{100 * need[0] / call_ms:.3f}%); padded count, 20 B every lane: "
+        f"{padded[0]:.6f} ms by {padded[1]} (the call "
+        f"{100 * padded[0] / call_ms:.3f}%)")
+    return dict(max_abs_err=err, ms=call_ms, plain_ms=plain_ms,
+                bound_ms=need[0], bound_by=need[1], route_ms=route_ms,
+                launch_ms=launch_ms, rows=route)
+
+
+def check_chain_sets(rng, device, reps: int = 5) -> int:
+    """The chain kernel exact and timed on chain_512_set (drawn from
+    `rng`) and chain_random_sets."""
+    err = 0
+    sets = {"512-segment": chain_512_set(rng),
+            **chain_random_sets(np.random.default_rng(CHAIN_SEED))}
+    for what, (segs, n_seg) in sets.items():
+        err = max(err, time_chain(f"the {what} set", segs, n_seg, CHAIN_KW,
+                                  device, reps)["max_abs_err"])
+    return err
 
 
 def check_first_batch(aligner, reads, device):
@@ -509,24 +644,13 @@ def check_first_batch(aligner, reads, device):
     codes_all, read_off, seeded = aligner.seed_batch(reads)
     seed_s = time.time() - t0
     n_cand, _r, _s, _c, _t, n_seg, segs = seeded
-    msb = chain_kernel.segment_lanes(int(n_seg[:n_cand].max()))
-    cargs = [torch.from_numpy(np.ascontiguousarray(a[:n_cand, :msb])).to(
-        device) for a in segs]
-    cargs.append(torch.from_numpy(n_seg[:n_cand].copy()).to(device))
     kw = dict(min_intron=cfg.min_intron, max_intron=cfg.max_intron)
-    rows = chain_kernel.chain_rows(*cargs, **kw)
-    c_err = max_abs_err([rows], [chain_kernel.chain_rows_plain(*cargs, **kw)])
-    if c_err:
-        raise AssertionError(f"chain kernel != plain on the first batch: "
-                             f"max err {c_err}")
-    c_ms = cuda_ms(lambda: chain_kernel.chain_rows(*cargs, **kw), 5)
-    c_plain = cuda_ms(lambda: chain_kernel.chain_rows_plain(*cargs, **kw), 1)
-    log(f"chain: first batch {n_cand} candidates x {msb} lanes, kernel == "
-        f"plain; {c_ms:.3f} ms vs plain {c_plain:.3f} ms")
+    chain = time_chain("the first batch", segs, n_seg[:n_cand], kw, device,
+                       5)
 
     t0 = time.time()
     _st, _ch, oriented, _ro, _runs, probs = aligner.fill_batch(
-        codes_all, read_off, seeded, rows.cpu().numpy())
+        codes_all, read_off, seeded, chain.pop("rows"))
     fill_s = time.time() - t0
     oriented_t = torch.from_numpy(oriented).to(device)
     chunks = list(kernels.dp_chunks(probs, read_off, device))
@@ -559,11 +683,6 @@ def check_first_batch(aligner, reads, device):
         f"{len(chunks)} chunks (max rows {int(nq[nq <= 2048].max())}), "
         f"kernel == plain; {d_ms:.3f} ms vs plain {d_plain:.3f} ms")
     # bounds: every input read once, every output written once
-    n_seg64 = n_seg[:n_cand].astype(np.int64)
-    c_bound = bound(5 * n_cand * msb * 4 + 4 * n_cand
-                    + n_cand * (msb + 3) * 2,
-                    float((n_seg64 * (n_seg64 - 1) // 2).sum())
-                    * CHAIN_OPS_PER_PAIR, PEAK_F32_OPS_S)
     d_bytes = d_cells = 0
     for _idx, desc, steps in chunks:
         c_nq, c_nt = desc[2].long(), desc[3].long()
@@ -571,23 +690,23 @@ def check_first_batch(aligner, reads, device):
         d_bytes += int((c_nq + c_nt).sum()) + len(c_nq) * (25 + 20 + steps)
         d_cells += int((c_nq * (c_nt + 1)).sum())
     d_bound = bound(d_bytes, d_cells * DP_OPS_PER_CELL, PEAK_I32_OPS_S)
-    log(f"bounds: chain {c_bound[0]:.6f} ms by {c_bound[1]}, dp "
-        f"{d_bound[0]:.6f} ms by {d_bound[1]} ({d_cells} cells, {d_bytes} "
-        f"bytes)")
+    log(f"bounds: dp {d_bound[0]:.6f} ms by {d_bound[1]} ({d_cells} cells, "
+        f"{d_bytes} bytes)")
     torch.cuda.synchronize()
     t0 = time.time()
     aligner.map_batch(reads)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     log(f"module A first batch ({len(reads)} reads), host clock: map_batch "
-        f"{total_s * 1e3:.1f} ms = C seed {seed_s * 1e3:.1f} + chain kernel "
-        f"{c_ms:.1f} + C fill {fill_s * 1e3:.1f} + dp kernel {d_ms:.1f} + "
-        f"C emit, uploads, checks and records "
-        f"{(total_s - seed_s - fill_s) * 1e3 - c_ms - d_ms:.1f}")
+        f"{total_s * 1e3:.1f} ms = C seed {seed_s * 1e3:.1f} + chain route "
+        f"{chain['route_ms']:.1f} (launch alone {chain['launch_ms']:.3f}) + "
+        f"C fill {fill_s * 1e3:.1f} + dp kernel {d_ms:.1f} + C emit, "
+        f"uploads, checks and records "
+        f"{(total_s - seed_s - fill_s) * 1e3 - chain['route_ms'] - d_ms:.1f}")
     return {"dp_fused": dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
                              bound_ms=d_bound[0], bound_by=d_bound[1]),
-            "chain_rows": dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
-                               bound_ms=c_bound[0], bound_by=c_bound[1])}
+            "chain_rows": {k: chain[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
 # ---------------------------------------------------------------- POA
@@ -1179,7 +1298,29 @@ def check_route_launches(run: dict) -> None:
                              f"expected {want} for {len(chunks)} chunks")
 
 
-def main() -> None:
+def chain_only(device) -> None:
+    """--chain-only: the chain's sets and the first read batch's chain
+    figures, nothing else; the 512-segment set comes from CHAIN_SEED, so
+    two trees' runs time the same inputs. Run from a copy of this script
+    inside another tree of the port, it times that tree's chain route."""
+    check_chain_sets(np.random.default_rng(CHAIN_SEED), device, reps=20)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_dataset(tmp, **DATASET)
+        reads = [(nm, sq) for nm, sq, _q in
+                 read_fastx(os.path.join(tmp, "reads.fasta"))]
+        aligner = TorchSpliceAligner(
+            fastx_to_dict(os.path.join(tmp, "genome.fasta")), device=device)
+    batch = max(aligner.cfg.batch_reads, -(-len(reads) // 3))
+    _codes, _off, seeded = aligner.seed_batch(reads[:batch])
+    n_cand, _r, _s, _c, _t, n_seg, segs = seeded
+    time_chain(f"the first batch ({batch} reads)", segs, n_seg[:n_cand],
+               dict(min_intron=aligner.cfg.min_intron,
+                    max_intron=aligner.cfg.max_intron), device, 20)
+
+
+def main(argv) -> None:
+    if argv not in ([], ["--chain-only"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--chain-only]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     t_start = time.time()
@@ -1200,11 +1341,16 @@ def main() -> None:
     t0 = time.time()
     require_native()
     log(f"build: native library {time.time() - t0:.1f}s")
+    if argv:
+        chain_only(device)
+        log(f"chip_smoke: the chain phase passed, {time.time() - t_start:.0f}"
+            f" s")
+        return
 
     rng = np.random.default_rng(0)
     errs = {"dp_fused": max(check_dp_random(rng, device),
                             check_dp_layouts(device)),
-            "chain_rows": check_chain_random(rng, device)}
+            "chain_rows": check_chain_sets(rng, device)}
     t0 = time.time()
     errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"] = check_poa_cases(
         rng, device)
@@ -1318,6 +1464,6 @@ def main() -> None:
 if __name__ == "__main__":
     adopt_descendants()
     try:
-        main()
+        main(sys.argv[1:])
     finally:
         stop_descendants()

@@ -40,9 +40,9 @@ _SIGNATURES = {
     # block_bytes, match, mismatch, gap_open, gap_extend, end_bonus, zdrop,
     # stream
     "mando_dp_fused": [_P] * 15 + [_I64] * 3 + [_I32] * 9 + [_P],
-    # qs, qe, ts, te, cov, n_seg, rows, n, msb, match, min_intron,
-    # max_intron, intron_penalty, indel_open, indel_scale, stream
-    "mando_chain_rows": [_P] * 7 + [_I64] + [_I32] * 4 + [_F32] * 3 + [_P],
+    # qs, qe, ts, te, cov, n_seg, order, rows, n, msb, per_block, match,
+    # min_intron, max_intron, intron_penalty, indel_open, indel_scale, stream
+    "mando_chain_rows": [_P] * 8 + [_I64] + [_I32] * 5 + [_F32] * 3 + [_P],
     # base, preds, nn, qq, ql, band, hpack, opack, d1p, d2p, offs, endcol,
     # state, bestc, n, n_cap, p_cap, l_cap, W, match, mismatch, gap_open,
     # gap_extend, gap_open2, gap_extend2, adaptive, stream

@@ -8,7 +8,8 @@ Two implementations of one function:
 
 - `chain_rows_plain`: `_chain_fn`'s scan in plain PyTorch, batched over
   candidates with a loop over segment index i;
-- csrc/chain.cu: the hand-written CUDA kernel (one block per candidate).
+- csrc/chain.cu: the hand-written CUDA kernel (a warp per candidate,
+  lanes on the receiving segments).
 
 `chain_rows` dispatches on the tensors' device: CPU tensors take the
 plain version, CUDA tensors the kernel. Both round float32 exactly as the
@@ -17,6 +18,8 @@ multiply-add) and the intron cost uses the frexp exponent.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +35,8 @@ MATCH = 1
 INTRON_PENALTY = 12.0
 INDEL_OPEN = 4.0
 INDEL_SCALE = 0.3
+
+WARPS = 4          # csrc/chain.cu's kWarps: candidates a block at most
 
 CHAIN_LAUNCHES = LaunchCounter("chain_rows")
 
@@ -92,35 +97,54 @@ def chain_rows_plain(qs, qe, ts, te, cov, n_seg, *, min_intron: int,
                       bits], dim=1)
 
 
-def _chain_rows_cuda(qs, qe, ts, te, cov, n_seg, *, min_intron,
-                     max_intron) -> torch.Tensor:
+def chain_order(n_seg: np.ndarray) -> np.ndarray:
+    """The order in which csrc/chain.cu starts the candidates: longest
+    first, ties in index order, as int32."""
+    return np.argsort(-np.asarray(n_seg, np.int64), kind="stable").astype(
+        np.int32)
+
+
+def _chain_rows_cuda(qs, qe, ts, te, cov, n_seg, *, min_intron, max_intron,
+                     order=None) -> torch.Tensor:
     lib = _build.load_kernels()
     n, msb = qs.shape
     rows = torch.empty((n, msb + 3), dtype=torch.int16, device=qs.device)
+    if n == 0:
+        return rows
+    # fewer candidates a block when there are too few to give each SM one
+    n_sm = torch.cuda.get_device_properties(qs.device).multi_processor_count
+    per_block = min(WARPS, max(1, -(-n // n_sm)))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         CHAIN_LAUNCHES.count += 1
         rc = lib.mando_chain_rows(
             qs.data_ptr(), qe.data_ptr(), ts.data_ptr(), te.data_ptr(),
-            cov.data_ptr(), n_seg.data_ptr(), rows.data_ptr(), n, msb,
-            MATCH, min_intron, max_intron, INTRON_PENALTY, INDEL_OPEN,
-            INDEL_SCALE, stream)
+            cov.data_ptr(), n_seg.data_ptr(),
+            None if order is None else order.data_ptr(), rows.data_ptr(), n,
+            msb, per_block, MATCH, min_intron, max_intron, INTRON_PENALTY,
+            INDEL_OPEN, INDEL_SCALE, stream)
     _build.check(rc, "mando_chain_rows")
     return rows
 
 
 def chain_rows(qs: torch.Tensor, qe: torch.Tensor, ts: torch.Tensor,
                te: torch.Tensor, cov: torch.Tensor, n_seg: torch.Tensor, *,
-               min_intron: int, max_intron: int) -> torch.Tensor:
+               min_intron: int, max_intron: int,
+               order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chain DP over n candidates of msb segment lanes.
 
     qs/qe/ts/te/cov: (n, msb) int32, contiguous, segments sorted as the
     native seed stage packs them (target offsets normalized per
     candidate, zero padding); n_seg: (n,) int32 <= msb; msb <= 512.
-    Returns (n, msb+3) int16 rows: parent per lane (-1 for none), the
-    best lane, and the best score's float32 bits (low half first). CPU
-    tensors run `chain_rows_plain`, CUDA tensors the csrc/chain.cu
-    kernel."""
+    order: None, or an (n,) int32 permutation of the candidates, the
+    order in which the kernel starts them (`chain_order`); the result
+    does not depend on it. Returns (n, msb+3) int16 rows: parent per lane
+    (-1 for none), the best lane, and the best score's float32 bits (low
+    half first). CPU tensors run `chain_rows_plain`, after a check of
+    n_seg's and order's values; CUDA tensors the csrc/chain.cu kernel,
+    with no check of values (no device-to-host transfer before the
+    launch: the caller holds n_seg's range, as `chain_batch_rows` does
+    on the host)."""
     n, msb = qs.shape if qs.dim() == 2 else (-1, -1)
     for name, x in (("qs", qs), ("qe", qe), ("ts", ts), ("te", te),
                     ("cov", cov)):
@@ -129,19 +153,25 @@ def chain_rows(qs: torch.Tensor, qe: torch.Tensor, ts: torch.Tensor,
             raise ValueError(f"{name}: need contiguous int32 ({n}, {msb}) "
                              f"on {qs.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    if n_seg.dtype != torch.int32 or tuple(n_seg.shape) != (n,) or \
-            not n_seg.is_contiguous() or n_seg.device != qs.device:
-        raise ValueError("n_seg: need a contiguous int32 (n,) tensor")
+    for name, x in (("n_seg", n_seg), ("order", order)):
+        if x is not None and (x.dtype != torch.int32 or tuple(x.shape) != (
+                n,) or not x.is_contiguous() or x.device != qs.device):
+            raise ValueError(f"{name}: need a contiguous int32 (n,) tensor "
+                             f"on {qs.device}")
     if qs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {qs.device}")
     if not 0 < msb <= MAX_SEG:
         raise ValueError(f"msb={msb} outside 1..{MAX_SEG}")
+    kw = dict(min_intron=min_intron, max_intron=max_intron)
+    if qs.device.type == "cuda":
+        return _chain_rows_cuda(qs, qe, ts, te, cov, n_seg, **kw,
+                                order=order)
     if n and (int(n_seg.min()) < 0 or int(n_seg.max()) > msb):
         raise ValueError(f"n_seg outside 0..{msb}")
-    kw = dict(min_intron=min_intron, max_intron=max_intron)
-    if qs.device.type == "cpu":
-        return chain_rows_plain(qs, qe, ts, te, cov, n_seg, **kw)
-    return _chain_rows_cuda(qs, qe, ts, te, cov, n_seg, **kw)
+    if order is not None and not torch.equal(
+            torch.sort(order).values, torch.arange(n, dtype=torch.int32)):
+        raise ValueError("order: not a permutation of the candidates")
+    return chain_rows_plain(qs, qe, ts, te, cov, n_seg, **kw)
 
 
 def chain_batch_rows(qs: np.ndarray, qe: np.ndarray, ts: np.ndarray,
@@ -150,14 +180,45 @@ def chain_batch_rows(qs: np.ndarray, qe: np.ndarray, ts: np.ndarray,
                      device: torch.device) -> np.ndarray:
     """The reference `chain_batch_rows` on `device`: the native seed
     stage's (cap, 512) candidate rows in, (n_cand, msb+3) int16 rows out,
-    msb = segment_lanes(batch max segments)."""
-    msb = segment_lanes(int(n_seg[:n_cand].max()) if n_cand else 0)
+    msb = segment_lanes(batch max segments).
 
-    def put(a):
-        a = a[:n_cand, :msb] if a.ndim == 2 else a[:n_cand]
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    n_seg's range is checked on the host array before any tensor is made.
+    On a CUDA device the five (n_cand, msb) planes, n_seg and the
+    candidates' order (`chain_order`) are staged in one pinned host
+    buffer and uploaded in one transfer; the kernel's rows come back in
+    one transfer into pinned memory."""
+    n_seg = np.asarray(n_seg)[:n_cand]
+    if n_cand and (n_seg.min() < 0 or n_seg.max() > MAX_SEG):
+        raise ValueError(f"n_seg outside 0..{MAX_SEG}")
+    msb = segment_lanes(int(n_seg.max()) if n_cand else 0)
+    if n_cand == 0:
+        return np.zeros((0, msb + 3), np.int16)
+    kw = dict(min_intron=min_intron, max_intron=max_intron)
+    device = torch.device(device)
+    if device.type != "cuda":
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                device)
 
-    rows = chain_rows(put(qs), put(qe), put(ts), put(te), put(cov),
-                      put(n_seg), min_intron=min_intron,
-                      max_intron=max_intron)
-    return rows.cpu().numpy()
+        rows = chain_rows(*(put(a[:n_cand, :msb])
+                            for a in (qs, qe, ts, te, cov)), put(n_seg), **kw)
+        return rows.cpu().numpy()
+    plane = n_cand * msb
+    staged = torch.empty(5 * plane + 2 * n_cand, dtype=torch.int32,
+                         pin_memory=True)
+    for p, a in enumerate((qs, qe, ts, te, cov)):
+        # torch's copy runs on the host's threads; numpy's on one
+        staged[p * plane:(p + 1) * plane].view(n_cand, msb).copy_(
+            torch.from_numpy(a)[:n_cand, :msb])
+    host = staged.numpy()
+    host[5 * plane:5 * plane + n_cand] = n_seg
+    host[5 * plane + n_cand:] = chain_order(n_seg)
+    with torch.cuda.device(device):
+        dev = staged.to(device, non_blocking=True)
+        rows = chain_rows(*dev[:5 * plane].view(5, n_cand, msb).unbind(0),
+                          dev[5 * plane:5 * plane + n_cand], **kw,
+                          order=dev[5 * plane + n_cand:])
+        out = torch.empty(rows.shape, dtype=torch.int16, pin_memory=True)
+        out.copy_(rows, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+    return out.numpy()

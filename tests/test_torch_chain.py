@@ -66,12 +66,69 @@ def _pack(cands):
     return (qs, qe, ts, te, cov), n_seg
 
 
-@pytest.mark.parametrize("n_max", [12, 90, 400])
+def _collinear_candidate(rng, n):
+    """Exactly n multi-anchor segments (n <= 512), collinear with indel
+    and intron gaps and overlaps, as chip_smoke.py's random set draws
+    them."""
+    segs = []
+    q = t = 0
+    for _ in range(n):
+        ln = int(rng.integers(15, 60))
+        q = max(q + int(rng.integers(-10, 15)), 0)
+        t = max(t + int(rng.choice([-10, 0, 3, 40, 300, 5000, 60000])), 0)
+        segs.append(Segment(q, q + ln, t, t + ln, n_anchors=3,
+                            cov=int(rng.integers(15, ln + 1))))
+        q, t = q + ln, t + ln
+    return prepare_segments(segs, KW["max_intron"])
+
+
+def _tied_candidate(rng, n_max):
+    """Candidates full of first-max ties: exons in one to three
+    alternatives of equal length and cov at target shifts that keep the
+    intron to the next exon in one power of two (equal cost), and each
+    alternative repeated up to three times (duplicated segments)."""
+    segs = []
+    q = int(rng.integers(0, 30))
+    t = int(rng.integers(0, 5000))
+    while len(segs) < n_max:
+        ln = int(rng.choice([20, 30]))
+        for shift in (0, 300, 700)[:int(rng.integers(1, 4))]:
+            seg = Segment(q, q + ln, t + shift, t + shift + ln, n_anchors=3,
+                          cov=ln)
+            segs.extend([seg] * int(rng.integers(1, 4)))
+        q += ln + int(rng.choice([0, 0, 3]))
+        t += ln + int(rng.choice([0, 5000, 5000, 6000]))
+    return prepare_segments(segs[:n_max], KW["max_intron"])
+
+
+def _cases(case, rng):
+    """The candidates of a test case: int n_max draws 24 random
+    candidates of up to n_max segments and two empty ones; "ties" tied
+    candidates; "edges" n_seg 0, 1 and the row width 64 with the warp
+    boundaries between; "mixed" a batch of 1 to 512 segments."""
+    if case == "ties":
+        return [_tied_candidate(rng, int(n)) for n in
+                rng.integers(2, 64, 20)] + [_tied_candidate(rng, 200), []]
+    if case == "edges":
+        return [_collinear_candidate(rng, n) for n in
+                (0, 1, 2, 31, 32, 33, 63, 64, 64, 1, 0)]
+    if case == "mixed":
+        return [_collinear_candidate(rng, int(n)) for n in
+                rng.integers(1, 40, 24)] + [
+            _collinear_candidate(rng, n) for n in (512, 1, 300, 0, 511)]
+    return [_random_candidate(rng, case) for _ in range(24)] + [[], []]
+
+
+SEEDS = {"ties": 7, "edges": 8, "mixed": 9}
+
+
+@pytest.mark.parametrize("n_max", [12, 90, 400, "ties", "edges", "mixed"])
 def test_plain_matches_jax_chain_rows(jax_chain, n_max):
     """Row widths 64, 128 and 512 (pow2 of the batch's longest candidate),
-    with empty candidates mixed in."""
-    rng = np.random.default_rng(n_max)
-    cands = [_random_candidate(rng, n_max) for _ in range(24)] + [[], []]
+    with empty candidates mixed in; tie-heavy candidates; n_seg 0, 1 and
+    the row width in one batch; and a batch of 1 to 512 segments."""
+    rng = np.random.default_rng(SEEDS.get(n_max, n_max))
+    cands = _cases(n_max, rng)
     segs, n_seg = _pack(cands)
     n = len(cands)
     got = chain_kernel.chain_batch_rows(*segs, n_seg, n, device=CPU, **KW)
@@ -122,13 +179,50 @@ def test_wrapper_checks_inputs():
     n_seg = torch.tensor([3, 0], dtype=torch.int32)
     rows = chain_kernel.chain_rows(z, z, z, z, z, n_seg, **KW)
     assert rows.shape == (2, 67) and rows.dtype == torch.int16
+    order = torch.tensor([1, 0], dtype=torch.int32)
+    assert torch.equal(
+        chain_kernel.chain_rows(z, z, z, z, z, n_seg, **KW, order=order),
+        rows)
     with pytest.raises(ValueError, match="qe"):
         chain_kernel.chain_rows(z, z.long(), z, z, z, n_seg, **KW)
     with pytest.raises(ValueError, match="n_seg outside"):
         chain_kernel.chain_rows(z, z, z, z, z, n_seg + 62, **KW)
+    with pytest.raises(ValueError, match="n_seg outside"):
+        chain_kernel.chain_rows(z, z, z, z, z, n_seg - 1, **KW)
+    with pytest.raises(ValueError, match="order"):
+        chain_kernel.chain_rows(z, z, z, z, z, n_seg, **KW,
+                                order=order.long())
+    with pytest.raises(ValueError, match="not a permutation"):
+        chain_kernel.chain_rows(z, z, z, z, z, n_seg, **KW,
+                                order=order * 0)
     m = z.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         chain_kernel.chain_rows(m, m, m, m, m, n_seg.to("meta"), **KW)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("bad", [-1, 513])
+def test_batch_rows_refuses_bad_n_seg_on_host(monkeypatch, device, bad):
+    """chain_batch_rows checks n_seg on its numpy array before it makes
+    any tensor (so before any upload), whatever the device."""
+    segs, n_seg = _pack([[Segment(0, 20, 0, 20, n_anchors=3)]] * 3)
+    n_seg[1] = bad
+
+    def no_tensor(*_a, **_k):
+        raise AssertionError("a tensor was made before the check")
+
+    for name in ("from_numpy", "empty", "tensor", "zeros"):
+        monkeypatch.setattr(torch, name, no_tensor)
+    with pytest.raises(ValueError, match="n_seg outside"):
+        chain_kernel.chain_batch_rows(*segs, n_seg, 3,
+                                      device=torch.device(device), **KW)
+
+
+def test_chain_order_longest_first():
+    n_seg = np.array([3, 0, 64, 3, 512, 1], np.int32)
+    order = chain_kernel.chain_order(n_seg)
+    assert order.dtype == np.int32
+    assert order.tolist() == [4, 2, 0, 3, 5, 1]
 
 
 @pytest.fixture
@@ -139,10 +233,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_max", [12, 400])
+@pytest.mark.parametrize("n_max", [12, 400, "ties", "edges", "mixed"])
 def test_cuda_kernel_matches_plain(cuda_device, n_max):
-    rng = np.random.default_rng(50 + n_max)
-    cands = [_random_candidate(rng, n_max) for _ in range(40)] + [[]]
+    rng = np.random.default_rng(50 + SEEDS.get(n_max, n_max))
+    cands = _cases(n_max, rng) if isinstance(n_max, str) else [
+        _random_candidate(rng, n_max) for _ in range(40)] + [[]]
     segs, n_seg = _pack(cands)
     n = len(cands)
     before = chain_kernel.CHAIN_LAUNCHES.count
@@ -152,3 +247,10 @@ def test_cuda_kernel_matches_plain(cuda_device, n_max):
     np.testing.assert_array_equal(
         got, chain_kernel.chain_batch_rows(*segs, n_seg, n, device=CPU,
                                            **KW))
+    # chain_rows on the card's tensors, in index order: the same rows
+    msb = got.shape[1] - 3
+    args = [torch.from_numpy(np.ascontiguousarray(a[:n, :msb])).to(
+        cuda_device) for a in segs]
+    rows = chain_kernel.chain_rows(
+        *args, torch.from_numpy(n_seg[:n].copy()).to(cuda_device), **KW)
+    np.testing.assert_array_equal(rows.cpu().numpy(), got)
