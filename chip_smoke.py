@@ -77,7 +77,25 @@ line is printed only when every phase passed:
    launch for every chunk under the rank limit and a step walk for the
    rest; the forward once a chunk, a chunk being a round of one width
    class with more than six problems in the fullest.
-5. one JSON line with every kernel, the nvidia-smi line, then the result
+5. mesh (parallel/ on torch.distributed), after the four turns:
+   (a) a one-rank NCCL group (`multihost_init` on a free localhost port)
+   and `make_mesh(1)`: `mesh_count_matrix` against np.bincount, the
+   sharded index lookup (slice-20k's index in four hash-range shards,
+   the first reads' minimizers, each orientation refined) against
+   `GenomeIndex.lookup`, `sharded_batch_score` against its plain version
+   on the CPU; (b) on two shards of the one card (`Mesh.from_devices`,
+   the same group) `chain_batch_rows`, `solve_dp_fused` and
+   `dispatch_chunk` (both walks) on batches of 1, 3 and 2k + 1 problems
+   (the second shard all or partly padding) against the meshless call on
+   the card and the plain versions; (c) slice-20k through the device
+   route twice more, in this process as the turns: under the one-rank
+   mesh, and under the two-shard mesh with `--index_backend sharded`;
+   the six artifacts must equal the host route's and the chain, dp,
+   forward and step walk counters must be positive in each; wall time,
+   stage seconds beside turn 0's, peak device memory, and the
+   collectives' count and host ms are printed; (d) `make_mesh(2)` on the
+   one card must raise. The group is destroyed at the phase's end.
+6. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -97,6 +115,7 @@ import ctypes
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -104,12 +123,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mandalorion_tpu_torch import (AlignConfig, _build, fastx_to_dict,
                                    read_fastx)
 from mandalorion_tpu_torch.align import chain_kernel, kernels
-from mandalorion_tpu_torch.align.aligner import TorchSpliceAligner
+from mandalorion_tpu_torch.align.aligner import (
+    TorchSpliceAligner, sharded_seed_hits)
+from mandalorion_tpu_torch.align.encode import (
+    encode, minimizers, revcomp_codes)
 from mandalorion_tpu_torch.native import native_poa_consensus
+from mandalorion_tpu_torch.parallel import dist as pdist
+from mandalorion_tpu_torch.parallel import mesh as pmesh
 from mandalorion_tpu_torch.pipeline import cli as port_cli
 from mandalorion_tpu_torch.poa import kernels as poa
 from mandalorion_tpu_torch.poa.graph import PoaParams
@@ -1298,6 +1323,235 @@ def check_route_launches(run: dict) -> None:
                              f"expected {want} for {len(chunks)} chunks")
 
 
+# ---------------------------------------------------------------- mesh
+
+MESH_SCORE = dict(batch=4097, qlen=64)   # sharded_batch_score's batch
+MESH_COUNT = dict(ids=1_000_003, segments=20_001)
+MESH_LOOKUP_READS = 400                  # reads whose minimizers (a)
+MESH_INDEX_SHARDS = 4                    # hash ranges of (a)'s index
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_mesh_collectives(mesh, index, reads, max_occ, rng) -> None:
+    """(a): the count matrix, the sharded lookup and the sharded score on
+    `mesh` against their plain versions."""
+    before = pmesh.COLLECTIVES.count
+    ids = rng.integers(0, MESH_COUNT["segments"], MESH_COUNT["ids"])
+    got = pdist.mesh_count_matrix(mesh, ids, MESH_COUNT["segments"])
+    if not np.array_equal(got, np.bincount(
+            ids, minlength=MESH_COUNT["segments"])):
+        raise AssertionError("mesh_count_matrix != np.bincount")
+    shards = pdist.place_index_shards(
+        mesh, *pdist.shard_index_arrays(index, MESH_INDEX_SHARDS))
+    hashes, q_off = [], [0]
+    for _name, seq in reads[:MESH_LOOKUP_READS]:
+        codes = encode(seq)
+        for qc in (codes, revcomp_codes(codes)):
+            hashes.append(minimizers(qc, index.kmer, index.window)[1])
+            q_off.append(q_off[-1] + len(hashes[-1]))
+    qidx, gpos = sharded_seed_hits(shards, np.concatenate(hashes),
+                                   np.array(q_off), max_occ)
+    n_hits = 0
+    for o, h in enumerate(hashes):
+        sel = (qidx >= q_off[o]) & (qidx < q_off[o + 1])
+        want_q, want_g = index.lookup(h, max_occ)
+        if not (np.array_equal(qidx[sel] - q_off[o], want_q)
+                and np.array_equal(gpos[sel], want_g)):
+            raise AssertionError(f"sharded lookup != GenomeIndex.lookup, "
+                                 f"orientation {o}")
+        n_hits += len(want_q)
+    q = rng.integers(0, 4, (MESH_SCORE["batch"], MESH_SCORE["qlen"]))
+    t = rng.integers(0, 4, (MESH_SCORE["batch"], 128))
+    got = pdist.sharded_batch_score(mesh, q, t)
+    want = pdist._score_batch(torch.from_numpy(q), torch.from_numpy(t))
+    if not np.array_equal(got, want.numpy()):
+        raise AssertionError("sharded_batch_score != its plain version")
+    log(f"mesh (a) on {mesh.size} shard(s), group "
+        f"{dist.get_backend(mesh.group) if mesh.group else None}: "
+        f"count matrix of {MESH_COUNT['ids']} ids == np.bincount; sharded "
+        f"lookup ({MESH_INDEX_SHARDS} hash ranges, {len(hashes)} "
+        f"orientations, {q_off[-1]} minimizers, {n_hits} hits) == "
+        f"GenomeIndex.lookup; sharded score of {MESH_SCORE['batch']} reads "
+        f"== plain; {pmesh.COLLECTIVES.count - before} collectives")
+
+
+def padding_batches(n: int) -> tuple:
+    """1, 3 and the largest odd count 2k + 1 <= n (the second of two
+    shards all, partly or one row padding)."""
+    return tuple(sorted({1, min(3, n), n - (n + 1) % 2}))
+
+
+def same(got, want, what) -> None:
+    for g, w in zip(got, want):
+        if not np.array_equal(np.asarray(g), np.asarray(w)):
+            raise AssertionError(f"mesh (b): {what} differs")
+
+
+def check_mesh_padding(mesh, aligner, reads, largest, device, rng) -> None:
+    """(b): the three dispatches on `mesh` (two shards of one card)
+    against the meshless call on the card and the plain versions, on
+    batches whose second shard is all, partly or one row padding."""
+    cpu = torch.device("cpu")
+    cfg = aligner.cfg
+    codes_all, read_off, seeded = aligner.seed_batch(reads[:300])
+    n_cand, _r, _s, _c, _t, n_seg, segs = seeded
+    kw = dict(min_intron=cfg.min_intron, max_intron=cfg.max_intron)
+    for b in padding_batches(n_cand):
+        want = chain_kernel.chain_batch_rows(*segs, n_seg, b, device=device,
+                                             **kw)
+        same([want], [chain_kernel.chain_batch_rows(
+            *segs, n_seg, b, device=cpu, **kw)], f"chain plain, {b}")
+        with pmesh.use_mesh(mesh):
+            got = chain_kernel.chain_batch_rows(*segs, n_seg, b,
+                                                device=device, **kw)
+        same([got], [want], f"chain rows, {b} candidates")
+    rows = chain_kernel.chain_batch_rows(*segs, n_seg, n_cand,
+                                         device=device, **kw)
+    _st, _ch, oriented, _ro, _runs, probs = aligner.fill_batch(
+        codes_all, read_off, seeded, rows)
+    genome_cpu = torch.from_numpy(aligner.index.seq_codes)
+    for b in padding_batches(len(probs[0])):
+        part = tuple(np.asarray(a)[:b] for a in probs)
+        want = kernels.solve_dp_fused(part, oriented, read_off,
+                                      aligner.genome_codes, cfg)
+        same(want, kernels.solve_dp_fused(part, oriented, read_off,
+                                          genome_cpu, cfg), f"dp plain, {b}")
+        with pmesh.use_mesh(mesh):
+            got = kernels.solve_dp_fused(part, oriented, read_off,
+                                         aligner.genome_codes, cfg)
+        same(got, want, f"dp results, {b} problems")
+    # POA: small sets against the plain versions too; the slice's largest
+    # chunk against the meshless launch (its plain forward takes 25 s)
+    sets = [[noisy_copy(rng, base, 0.03) for _ in range(4)]
+            for base in (rng.integers(0, 4, 300).astype(np.uint8)
+                         for _ in range(9))]
+    params = PoaParams(band=20, adaptive=True)
+    _cons, kept = capture_consensus(sets, params, device, {2})
+    _k, W, l_cap, arrays = kept[0]
+    cases = [(arrays, W, l_cap, params, True)]
+    l_arrays, l_W, l_l_cap, l_params = largest
+    cases.append((l_arrays, l_W, l_l_cap, l_params, False))
+    for arrays, W, l_cap, params, plain in cases:
+        for b in padding_batches(len(arrays[2])):
+            part = [a[:b] for a in arrays]
+            for walk in poa.WALKS:
+                args = (*part, W, l_cap, params)
+
+                def steps(out):
+                    rows, counts = out
+                    return [counts] + [rows[k, :c]
+                                       for k, c in enumerate(counts)]
+
+                want = steps(poa.dispatch_chunk(*args, device, walk=walk))
+                if plain:
+                    same(want, steps(poa.dispatch_chunk(*args, cpu,
+                                                        walk=walk)),
+                         f"poa plain, {walk}, {b}")
+                with pmesh.use_mesh(mesh):
+                    got = steps(poa.dispatch_chunk(*args, device, walk=walk))
+                same(got, want, f"poa {walk} walk, {b} problems")
+    log(f"mesh (b) on two shards of {device}: chain rows (batches "
+        f"{padding_batches(n_cand)} of {n_cand} candidates), dp results "
+        f"(batches {padding_batches(len(probs[0]))}), poa steps and records "
+        f"(9 problems of 300 bases: batches {padding_batches(9)}, also == "
+        f"plain; the slice's largest chunk: batches "
+        f"{padding_batches(len(l_arrays[2]))}) == the meshless calls")
+
+
+def run_mesh_route(out_dir, inputs, mesh, flags=()) -> dict:
+    """The slice through `mando-tpu-torch --device cuda
+    --consensus_backend device [flags]` under `mesh`, every launch
+    counter and the collectives' statistics set to 0 just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for *_names, counter in KERNELS:
+        counter.count = 0
+    pmesh.COLLECTIVES.count, pmesh.COLLECTIVES.seconds = 0, 0.0
+    t0 = time.time()
+    with pmesh.use_mesh(mesh):
+        port_cli.main(["-p", out_dir, *inputs, "--device", "cuda",
+                       "--consensus_backend", "device", *flags])
+        torch.cuda.synchronize()
+    return dict(seconds=time.time() - t0,
+                launches={name: counter.count
+                          for name, *_r, counter in KERNELS},
+                peak=torch.cuda.max_memory_allocated(),
+                stages=stage_seconds(out_dir),
+                collectives=(pmesh.COLLECTIVES.count,
+                             pmesh.COLLECTIVES.seconds * 1e3))
+
+
+def mesh_phase(tmp, inputs, ref, turn0, aligner, reads, largest,
+               device) -> None:
+    """Phase 5, (a) to (d)."""
+    t_phase = time.time()
+    rng = np.random.default_rng(5)
+    pmesh.multihost_init(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=120,
+                         device="cuda")
+    try:
+        one = pmesh.make_mesh(1)
+        if (one.world, one.devices, dist.get_backend(one.group)) != (
+                1, (device,), "nccl"):
+            raise AssertionError(f"make_mesh(1) under the NCCL group: {one}")
+        two = pmesh.Mesh.from_devices([device, device], group=one.group)
+        check_mesh_collectives(one, aligner.index, reads, aligner.max_occ,
+                               rng)
+        check_mesh_collectives(two, aligner.index, reads, aligner.max_occ,
+                               rng)
+        check_mesh_padding(two, aligner, reads, largest, device, rng)
+        for what, mesh, flags in (
+                ("the one-rank NCCL mesh", one, ()),
+                ("two shards of one card, sharded index", two,
+                 ("--index_backend", "sharded"))):
+            out_dir = os.path.join(tmp, f"mesh{mesh.size}")
+            run_ = run_mesh_route(out_dir, inputs, mesh, flags)
+            got = artifact_bytes(out_dir)
+            for name in ARTIFACTS:
+                if got[name] != ref[name]:
+                    raise AssertionError(f"{name} under {what} differs from "
+                                         f"the host run")
+            launches = run_["launches"]
+            if min(launches[k] for k in ("chain_rows", "dp_fused", "poa_fwd",
+                                         "poa_walk")) <= 0:
+                raise AssertionError(f"under {what}: launches {launches}")
+            n_coll, coll_ms = run_["collectives"]
+            if n_coll <= 0:
+                raise AssertionError(f"under {what}: no collective ran")
+            t0s = turn0["stages"]
+            log(f"mesh (c) slice under {what}: {len(ARTIFACTS)} artifacts "
+                f"byte-identical to the host run; launches {launches}; "
+                f"{n_coll} collectives, {coll_ms:.1f} ms host clock; peak "
+                f"device memory {run_['peak']} bytes (turn 0: "
+                f"{turn0['peak']}); wall {run_['seconds']:.1f}s (turn 0: "
+                f"{turn0['seconds']:.1f}s)")
+            log(f"mesh (c) stage seconds under {what} | turn 0: " + ", ".join(
+                f"{k} {run_['stages'][k]:.2f} | {t0s[k]:.2f}" for k in t0s))
+        if torch.cuda.device_count() == 1:
+            try:
+                pmesh.make_mesh(2)
+            except ValueError as e:
+                log(f"mesh (d) make_mesh(2) on one card under the group "
+                    f"raised: {e}")
+            else:
+                raise AssertionError("make_mesh(2) on one card did not raise")
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() == 1:
+        try:
+            pmesh.make_mesh(2)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("make_mesh(2) on one card did not raise")
+    log(f"mesh: phase (a)-(d) passed, group destroyed, "
+        f"{time.time() - t_phase:.1f}s")
+
+
 def chain_only(device) -> None:
     """--chain-only: the chain's sets and the first read batch's chain
     figures, nothing else; the 512-segment set comes from CHAIN_SEED, so
@@ -1382,7 +1636,6 @@ def main(argv) -> None:
             device=device)
         batch = max(aligner.cfg.batch_reads, -(-len(reads) // 3))
         measured = check_first_batch(aligner, reads[:batch], device)
-        del aligner, reads
 
         ref = artifact_bytes(ref_dir)
         ref_t = stage_seconds(ref_dir)
@@ -1439,6 +1692,9 @@ def main(argv) -> None:
             f"{sum(sizes) / len(sizes):.1f}), (n_cap, W) classes {classes}; "
             f"host route D_define {ref_t['D_define']:.2f} s")
         measured.update(check_poa_main_path(stats.largest, device))
+        mesh_phase(tmp, inputs, ref, by_steps, aligner, reads,
+                   stats.largest, device)
+        del aligner, reads
 
     for banned in ("jax", "mandalorion_tpu"):
         if banned in sys.modules:

@@ -14,6 +14,13 @@ route (the reference's `_map_batch_device_staged`), per batch:
 
 The index's uint8 sequence codes are uploaded to the device once and stay
 there. Both classes give byte-identical records.
+
+Under a pipeline mesh (parallel.mesh.use_mesh) the chain and DP
+dispatches shard over the mesh's devices (the genome codes are uploaded
+once to each), and with index_backend 'sharded' the seed lookups run
+against hash-range index shards on those devices (`sharded_seed_hits`)
+before the C stage collapses and packs their anchors
+(native_stage_seed_anchors): the same candidates, the same records.
 """
 
 from __future__ import annotations
@@ -31,14 +38,18 @@ from mandalorion_tpu_torch.align.encode import (
     encode, minimizers, revcomp_codes)
 from mandalorion_tpu_torch.align.extend import (
     DpProblem, DpResult, solve_dp_native, splice_fill)
-from mandalorion_tpu_torch.align.index import cached_index, frequency_occ_cap
+from mandalorion_tpu_torch.align.index import (
+    ANCHOR_BUDGET, cached_index, frequency_occ_cap)
 from mandalorion_tpu_torch.align.kernels import solve_dp_fused
 from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch.io.psl import PslRecord
 from mandalorion_tpu_torch.native import (
     native_align_read, native_align_read_runs, native_emit_psl,
     native_stage_emit_batch, native_stage_fill_batch,
-    native_stage_seed_batch)
+    native_stage_seed_anchors, native_stage_seed_batch)
+from mandalorion_tpu_torch.parallel.dist import (
+    IndexShards, place_index_shards, shard_index_arrays)
+from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
 from mandalorion_tpu_torch.runtime import resolve_device
 
 
@@ -62,9 +73,6 @@ class SpliceAligner:
     def __init__(self, genome: Dict[str, str],
                  cfg: Optional[AlignConfig] = None):
         self.cfg = cfg or AlignConfig()
-        if self.cfg.index_backend == "sharded":
-            raise NotImplementedError("index_backend='sharded' is not yet "
-                                      "ported to mandalorion_tpu_torch")
         self.index = cached_index(genome, self.cfg.kmer, self.cfg.window,
                                   self.cfg.index_cache)
         if self.index.bucket_lo is None:
@@ -364,11 +372,60 @@ def cfg_min_len(cfg: AlignConfig) -> float:
     return float(cfg.min_chain_score)
 
 
+SEED_QUERY_BLOCK = 1 << 20  # queries a sharded lookup call at most
+# (whole orientations; one orientation alone may exceed it)
+
+
+def sharded_seed_hits(shards: IndexShards, hashes: np.ndarray,
+                      q_off: np.ndarray, max_occ: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """`GenomeIndex.lookup` through a hash-sharded index, for many
+    orientations at once: orientation o's queries are
+    hashes[q_off[o]:q_off[o+1]]. The lookups run over the mesh in blocks
+    of whole orientations (`IndexShards.lookup`); the refinement is the
+    reference's `_sharded_lookup` per orientation: counts summed over
+    shards (one shard owns each hash), the max_occ cap, the ANCHOR_BUDGET
+    cut. Returns (qidx, gpos) int64, query-major with each query's hits
+    in its shard's sorted order: for one orientation what
+    GenomeIndex.lookup returns."""
+    q_off = np.asarray(q_off, np.int64)
+    n_orient = len(q_off) - 1
+    out_q, out_g = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    o = 0
+    while o < n_orient:
+        o1 = o + 1
+        while o1 < n_orient and q_off[o1 + 1] - q_off[o] <= SEED_QUERY_BLOCK:
+            o1 += 1
+        qa, qb = int(q_off[o]), int(q_off[o1])
+        if qb > qa:
+            pos, valid, cnt = shards.lookup(hashes[qa:qb], max_occ)
+            counts = cnt.sum(axis=0)
+            keep = (counts > 0) & (counts <= max_occ)
+            oid = np.repeat(np.arange(o1 - o), np.diff(q_off[o:o1 + 1]))
+            kept = np.bincount(oid, weights=np.where(keep, counts, 0),
+                               minlength=o1 - o)
+            for j in np.flatnonzero(kept > ANCHOR_BUDGET):
+                sl = slice(int(q_off[o + j]) - qa, int(q_off[o + j + 1]) - qa)
+                c = np.sort(counts[sl][keep[sl]])
+                k = int(np.searchsorted(np.cumsum(c), ANCHOR_BUDGET,
+                                        "right"))
+                cut = max(int(c[k - 1]) if k > 0 else 1, 1)
+                keep[sl] &= counts[sl] <= cut
+            qi, si, ki = np.nonzero(valid.transpose(1, 0, 2)
+                                    & keep[:, None, None])
+            out_q.append(qi + qa)
+            out_g.append(pos[si, qi, ki])
+        o = o1
+    return np.concatenate(out_q).astype(np.int64), \
+        np.concatenate(out_g).astype(np.int64)
+
+
 class TorchSpliceAligner(SpliceAligner):
     """SpliceAligner whose `map_batch` runs the staged device route on
     `device` ('cuda' or 'cpu'; the CPU runs the kernels' plain PyTorch
-    versions). Every other method is the host aligner's, and `host_twin()`
-    returns a plain host SpliceAligner sharing the index."""
+    versions), or on the mesh's devices when one is installed. Every
+    other method is the host aligner's, and `host_twin()` returns a plain
+    host SpliceAligner sharing the index (replicated)."""
 
     def __init__(self, genome, cfg: Optional[AlignConfig] = None,
                  device="cuda"):
@@ -396,24 +453,73 @@ class TorchSpliceAligner(SpliceAligner):
         return twin
 
     def _bind(self, device: torch.device) -> None:
+        """Upload the genome codes once to `device` and, under a pipeline
+        mesh, to each distinct mesh device; with index_backend 'sharded'
+        under a mesh, place this process's hash-range index shards on
+        their mesh devices (without a mesh the index stays replicated, as
+        in the reference)."""
         self.device = device
-        # uploaded once; on the CPU this shares the index's numpy buffer
+        # on the CPU this shares the index's numpy buffer
         self.genome_codes = torch.from_numpy(self.index.seq_codes).to(device)
+        self._genome_on = {device: self.genome_codes}
+        self._genome()
+        mesh = pipeline_mesh()
+        self._sharded = None
+        if self.cfg.index_backend == "sharded" and mesh is not None:
+            self._sharded = place_index_shards(
+                mesh, *shard_index_arrays(self.index, mesh.size))
+
+    def _genome(self):
+        """The genome codes for solve_dp_fused: the tensor on
+        self.device, or under a mesh the codes by mesh device (uploaded at
+        most once to each)."""
+        mesh = pipeline_mesh()
+        if mesh is None:
+            return self.genome_codes
+        for dev in mesh.distinct_devices():
+            if dev not in self._genome_on:
+                self._genome_on[dev] = torch.from_numpy(
+                    self.index.seq_codes).to(dev)
+        return self._genome_on
 
     def seed_batch(self, reads: Sequence[Tuple[str, str]]):
         """C seed stage: (codes_all, read_off, seeded), seeded being
         native_stage_seed_batch's (n_cand, read, strand, chrom, tbase,
-        n_seg, (qs, qe, ts, te, cov))."""
+        n_seg, (qs, qe, ts, te, cov)). With a sharded index the lookup runs
+        over the mesh (`sharded_seed_hits`) and the C stage collapses,
+        prepares and packs its anchors (native_stage_seed_anchors): the
+        same tuple."""
         cfg = self.cfg
         code_list = [encode(seq) for _name, seq in reads]
         read_off = np.zeros(len(reads) + 1, np.int64)
         np.cumsum([len(c) for c in code_list], out=read_off[1:])
         codes_all = (np.concatenate(code_list) if code_list
                      else np.zeros(0, np.uint8))
+        if self._sharded is not None:
+            return codes_all, read_off, self._seed_sharded(code_list)
         seeded = native_stage_seed_batch(
             codes_all, read_off, cfg.kmer, cfg.window, self.max_occ, 100,
             self.index, cfg.max_intron)
         return codes_all, read_off, seeded
+
+    def _seed_sharded(self, code_list):
+        cfg = self.cfg
+        mpos, hashes = [], []
+        for codes in code_list:
+            for qc in (codes, revcomp_codes(codes)):
+                p, h = minimizers(qc, cfg.kmer, cfg.window)
+                mpos.append(p)
+                hashes.append(h)
+        q_off = np.zeros(len(mpos) + 1, np.int64)
+        np.cumsum([len(p) for p in mpos], out=q_off[1:])
+        qidx, gpos = sharded_seed_hits(
+            self._sharded, np.concatenate(hashes) if hashes
+            else np.zeros(0, np.uint64), q_off, self.max_occ)
+        anchor_q = (np.concatenate(mpos) if mpos
+                    else np.zeros(0, np.int64))[qidx]
+        return native_stage_seed_anchors(
+            np.searchsorted(qidx, q_off), anchor_q, gpos, len(code_list),
+            cfg.kmer, 100, self.index, cfg.max_intron)
 
     def chain_batch(self, seeded) -> np.ndarray:
         """Chain DP on the device: the packed int16 chain rows."""
@@ -447,7 +553,7 @@ class TorchSpliceAligner(SpliceAligner):
             codes_all, read_off, seeded, rows)
         cfg = self.cfg
         meta, ks, buf, on_host = solve_dp_fused(
-            probs, oriented, read_off, self.genome_codes, cfg)
+            probs, oriented, read_off, self._genome(), cfg)
         stats, blk_off, bs, bq, bt, cs_off, cs_raw = \
             native_stage_emit_batch(
                 oriented, read_off, self.index.seq_codes, strand, run_off,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from mandalorion_tpu_torch import _build
+from mandalorion_tpu_torch.parallel.mesh import fetch_global, pipeline_mesh
 from mandalorion_tpu_torch.runtime import LaunchCounter
 
 NEG = -1e18        # score of padding lanes (float32 of the reference's NEG)
@@ -186,7 +187,13 @@ def chain_batch_rows(qs: np.ndarray, qe: np.ndarray, ts: np.ndarray,
     On a CUDA device the five (n_cand, msb) planes, n_seg and the
     candidates' order (`chain_order`) are staged in one pinned host
     buffer and uploaded in one transfer; the kernel's rows come back in
-    one transfer into pinned memory."""
+    one transfer into pinned memory.
+
+    Under a pipeline mesh (parallel.mesh.use_mesh) the candidates shard
+    in contiguous blocks over the mesh, each of this process's shards
+    runs the same route on its own device (rows past n_cand padding with
+    n_seg 0), msb from the whole batch, and the rows gather back in shard
+    order; `device` is not used then."""
     n_seg = np.asarray(n_seg)[:n_cand]
     if n_cand and (n_seg.min() < 0 or n_seg.max() > MAX_SEG):
         raise ValueError(f"n_seg outside 0..{MAX_SEG}")
@@ -194,31 +201,55 @@ def chain_batch_rows(qs: np.ndarray, qe: np.ndarray, ts: np.ndarray,
     if n_cand == 0:
         return np.zeros((0, msb + 3), np.int16)
     kw = dict(min_intron=min_intron, max_intron=max_intron)
+    planes = (qs, qe, ts, te, cov)
+    mesh = pipeline_mesh()
+    if mesh is not None:
+        _padded, slices = mesh.shard_slices(n_cand)
+        (rows,) = fetch_global(mesh, [
+            (_route_rows(planes, n_seg, lo, hi, msb, kw, dev),)
+            for dev, lo, hi in slices])
+        return rows[:n_cand]
     device = torch.device(device)
+    rows = _route_rows(planes, n_seg, 0, n_cand, msb, kw, device)
     if device.type != "cuda":
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-                device)
-
-        rows = chain_rows(*(put(a[:n_cand, :msb])
-                            for a in (qs, qe, ts, te, cov)), put(n_seg), **kw)
-        return rows.cpu().numpy()
-    plane = n_cand * msb
-    staged = torch.empty(5 * plane + 2 * n_cand, dtype=torch.int32,
-                         pin_memory=True)
-    for p, a in enumerate((qs, qe, ts, te, cov)):
-        # torch's copy runs on the host's threads; numpy's on one
-        staged[p * plane:(p + 1) * plane].view(n_cand, msb).copy_(
-            torch.from_numpy(a)[:n_cand, :msb])
-    host = staged.numpy()
-    host[5 * plane:5 * plane + n_cand] = n_seg
-    host[5 * plane + n_cand:] = chain_order(n_seg)
+        return rows.numpy()
     with torch.cuda.device(device):
-        dev = staged.to(device, non_blocking=True)
-        rows = chain_rows(*dev[:5 * plane].view(5, n_cand, msb).unbind(0),
-                          dev[5 * plane:5 * plane + n_cand], **kw,
-                          order=dev[5 * plane + n_cand:])
         out = torch.empty(rows.shape, dtype=torch.int16, pin_memory=True)
         out.copy_(rows, non_blocking=True)
         torch.cuda.current_stream(device).synchronize()
     return out.numpy()
+
+
+def _route_rows(planes, n_seg: np.ndarray, lo: int, hi: int, msb: int,
+                kw: dict, device: torch.device) -> torch.Tensor:
+    """Chain rows of candidates lo..hi (zero rows, n_seg 0, past
+    n_seg's end) on `device`, left there. On CUDA the inputs travel in
+    one pinned buffer and the launch is not waited for."""
+    n = hi - lo
+    real = max(min(hi, len(n_seg)) - lo, 0)
+    nseg = np.zeros(n, np.int32)
+    nseg[:real] = n_seg[lo:lo + real]
+    if device.type != "cuda":
+        def put(a):
+            out = torch.zeros((n, msb), dtype=torch.int32)
+            out[:real] = torch.from_numpy(a[lo:lo + real, :msb])
+            return out.to(device)
+
+        return chain_rows(*(put(a) for a in planes),
+                          torch.from_numpy(nseg).to(device), **kw)
+    plane = n * msb
+    staged = torch.empty(5 * plane + 2 * n, dtype=torch.int32,
+                         pin_memory=True)
+    for p, a in enumerate(planes):
+        rows = staged[p * plane:(p + 1) * plane].view(n, msb)
+        # torch's copy runs on the host's threads; numpy's on one
+        rows[:real].copy_(torch.from_numpy(a[lo:lo + real, :msb]))
+        rows[real:].zero_()
+    host = staged.numpy()
+    host[5 * plane:5 * plane + n] = nseg
+    host[5 * plane + n:] = chain_order(nseg)
+    with torch.cuda.device(device):
+        dev = staged.to(device, non_blocking=True)
+        return chain_rows(*dev[:5 * plane].view(5, n, msb).unbind(0),
+                          dev[5 * plane:5 * plane + n], **kw,
+                          order=dev[5 * plane + n:])

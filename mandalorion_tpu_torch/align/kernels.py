@@ -25,13 +25,14 @@ host solver, exactly as in the reference.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch import _build
+from mandalorion_tpu_torch.parallel.mesh import fetch_global, pipeline_mesh
 from mandalorion_tpu_torch.runtime import LaunchCounter
 
 NEG = -(10 ** 9)
@@ -432,12 +433,14 @@ def _chunks(order: np.ndarray, nq: np.ndarray, nt: np.ndarray
         yield order[start:]
 
 
-def dp_chunks(probs, read_off: np.ndarray, device: torch.device
+def dp_chunks(probs, read_off: np.ndarray, device: torch.device,
+              idx: Optional[np.ndarray] = None
               ) -> Iterator[Tuple[np.ndarray, tuple, int]]:
     """The device-eligible problems of stage_fill_batch_c's descriptors
-    (prob_read, mode, q0, t0, nq, nt) as `dp_fused` inputs on `device`:
-    yields (problem indices, (q_lo, t_lo, nq, nt, mode), steps) per chunk,
-    smallest problems first, each chunk's padded pointer matrices within
+    (prob_read, mode, q0, t0, nq, nt), or of those the problem indices
+    `idx` name, as `dp_fused` inputs on `device`: yields (problem
+    indices, (q_lo, t_lo, nq, nt, mode), steps) per chunk, smallest
+    problems first, each chunk's padded pointer matrices within
     PTR_BUDGET. q_lo indexes the batch's oriented codes (read_off gives
     each read's start), t_lo the genome."""
     prob_read, prob_mode, prob_q0, prob_t0, prob_nq, prob_nt = (
@@ -448,7 +451,8 @@ def dp_chunks(probs, read_off: np.ndarray, device: torch.device
     base = read_off[prob_read]
     q_lo = np.where(rev, base + prob_q0 - nq, base + prob_q0)
     t_lo = np.where(rev, prob_t0 - nt, prob_t0)
-    idx = np.flatnonzero(device_eligible(nq, nt))
+    if idx is None:
+        idx = np.flatnonzero(device_eligible(nq, nt))
     order = idx[np.argsort((nq[idx] + 1) * (nt[idx] + 1), kind="stable")]
 
     def put(a, dtype):
@@ -462,15 +466,21 @@ def dp_chunks(probs, read_off: np.ndarray, device: torch.device
 
 
 def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
-                   genome: torch.Tensor, cfg: AlignConfig):
+                   genome, cfg: AlignConfig):
     """Solve the staged route's DP descriptors (stage_fill_batch_c's
-    (prob_read, mode, q0, t0, nq, nt)) on genome.device.
+    (prob_read, mode, q0, t0, nq, nt)) on genome's device.
 
-    `genome` is the index's uint8 codes, resident on the device;
-    `oriented`/`read_off` are the batch's host arrays. Returns host
-    arrays (meta (n,4) int32, ks (n,) int32, buf (n,S) int8,
-    on_host (n,) uint8), the reference `solve_dp_fused`'s contract: rows
-    with on_host=1 are left zero for the emit stage to solve."""
+    `genome` is the index's uint8 codes, resident on the device (or a
+    dict of them by device); `oriented`/`read_off` are the batch's host
+    arrays. Returns host arrays (meta (n,4) int32, ks (n,) int32,
+    buf (n,S) int8, on_host (n,) uint8), the reference `solve_dp_fused`'s
+    contract: rows with on_host=1 are left zero for the emit stage to
+    solve.
+
+    Under a pipeline mesh the device-eligible problems shard in
+    contiguous blocks over the mesh; each of this process's shards runs
+    its own chunks against the genome codes on its device, and meta, ks
+    and buf (as wide as the batch's longest walk) gather once a call."""
     nq, nt = np.asarray(probs[4]), np.asarray(probs[5])
     n = len(nq)
     ok = device_eligible(nq, nt)
@@ -478,11 +488,43 @@ def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
     ks = np.zeros(n, np.int32)
     buf = np.zeros((n, int((nq + nt)[ok].max()) if ok.any() else 1),
                    np.int8)
-    if ok.any():
-        oriented_t = torch.from_numpy(oriented).to(genome.device)
-        for chunk, desc, steps in dp_chunks(probs, read_off, genome.device):
+    if not ok.any():
+        return meta, ks, buf, (~ok).astype(np.uint8)
+    mesh = pipeline_mesh()
+    if mesh is None:
+        dev = genome.device
+        oriented_t = torch.from_numpy(oriented).to(dev)
+        for chunk, desc, steps in dp_chunks(probs, read_off, dev):
             m, k, b = dp_fused(genome, oriented_t, *desc, cfg, steps)
             meta[chunk] = m.cpu().numpy()
             ks[chunk] = k.cpu().numpy()
             buf[chunk, :steps] = b.cpu().numpy()
+        return meta, ks, buf, (~ok).astype(np.uint8)
+    idx = np.flatnonzero(ok)
+    _padded, slices = mesh.shard_slices(len(idx))
+    shards = []
+    oriented_on = {}
+    for dev, lo, hi in slices:
+        sub = idx[lo:hi]
+        m = torch.zeros((hi - lo, 4), dtype=torch.int32, device=dev)
+        k = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
+        b = torch.zeros((hi - lo, buf.shape[1]), dtype=torch.int8,
+                        device=dev)
+        if len(sub):
+            if dev not in oriented_on:
+                oriented_on[dev] = torch.from_numpy(oriented).to(dev)
+            codes = genome[dev] if isinstance(genome, dict) \
+                else genome.to(dev)
+            for chunk, desc, steps in dp_chunks(probs, read_off, dev, sub):
+                at = torch.from_numpy(np.searchsorted(sub, chunk)).to(dev)
+                mm, kk, bb = dp_fused(codes, oriented_on[dev], *desc, cfg,
+                                      steps)
+                m[at] = mm.to(m.dtype)
+                k[at] = kk.to(k.dtype)
+                b[at, :steps] = bb.to(b.dtype)
+        shards.append((m, k, b))
+    g_meta, g_ks, g_buf = fetch_global(mesh, shards)
+    meta[idx] = g_meta[:len(idx)]
+    ks[idx] = g_ks[:len(idx)]
+    buf[idx] = g_buf[:len(idx)]
     return meta, ks, buf, (~ok).astype(np.uint8)

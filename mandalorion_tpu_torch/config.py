@@ -70,8 +70,10 @@ class AlignConfig:
                                    # minimap2 .mmi analogue; validated
                                    # against genome + k/w on load
     index_backend: str = "replicated"  # 'replicated' (per-host index);
-                                   # 'sharded' (hash-range shards over a
-                                   # device mesh) is not yet ported
+                                   # 'sharded' (hash-range shards over the
+                                   # installed device mesh on the device
+                                   # route; byte-identical; without a
+                                   # mesh the index stays replicated)
 
 
 @dataclass(frozen=True)

@@ -69,9 +69,22 @@ def count_matrix(filtered_isoforms: Sequence[str],
                 continue
             flat.append(i * n_samples + sample_idx[sample])
     n_segments = len(filtered_isoforms) * n_samples
-    counts = np.bincount(
-        np.asarray(flat, np.int64), minlength=n_segments,
-    ) if flat else np.zeros(n_segments, np.int64)
+    # A pipeline mesh can only be installed through parallel.mesh's
+    # use_mesh, so when that module was never imported there is no mesh,
+    # and importing it here would pull torch into a host-only module Q.
+    import sys
+    mesh_mod = sys.modules.get("mandalorion_tpu_torch.parallel.mesh")
+    mesh = mesh_mod.pipeline_mesh() if mesh_mod is not None else None
+    if mesh is not None and flat and n_segments:
+        # per-shard bincount + all_reduce over the mesh (exact: integer
+        # counts), parallel/dist.py
+        from mandalorion_tpu_torch.parallel.dist import mesh_count_matrix
+        counts = mesh_count_matrix(mesh, np.asarray(flat, np.int64),
+                                   n_segments)
+    else:
+        counts = np.bincount(
+            np.asarray(flat, np.int64), minlength=n_segments,
+        ) if flat else np.zeros(n_segments, np.int64)
     return counts.reshape(len(filtered_isoforms), n_samples)
 
 

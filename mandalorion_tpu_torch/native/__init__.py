@@ -125,6 +125,13 @@ def load_native() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int64,                   # chroms
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,    # intr,seg,cap
             ] + [ctypes.c_void_p] * 10
+        lib.stage_seed_anchors_c.restype = ctypes.c_int64
+        lib.stage_seed_anchors_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # off,q,g
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,     # n, k, gap
+            ctypes.c_void_p, ctypes.c_int64,                    # chroms
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # intr,seg,cap
+            ] + [ctypes.c_void_p] * 10
         lib.stage_fill_batch_c.restype = ctypes.c_int64
         lib.stage_fill_batch_c.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # codes,off,n
@@ -640,18 +647,9 @@ def native_poa_align(graph, q, params):
 # only caller.
 
 
-def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
-                            k: int, w: int, max_occ: int, merge_gap: int,
-                            index, max_intron: int,
-                            max_segments: int = 512):
-    """Phase A: seed + prepare every (read, orientation, chromosome)
-    candidate in one C call, packed straight into the chain kernel's
-    zero-padded (cap, max_segments) int32 input rows. Returns
-    (n_cand, cand_read, cand_strand, cand_chrom, cand_tbase, cand_nseg,
-    (qs, qe, ts, te, cov)) or"""
-    lib = load_native()
-    n_reads = len(read_off) - 1
-    pos_is_u32 = 1 if index.sorted_positions.dtype == np.uint32 else 0
+def _stage_candidates(call, n_reads: int, max_segments: int):
+    """Run a phase-A entry (`call(cap, *outputs)`) with growing caps until
+    its candidates fit; returns the phase-A tuple."""
     cap = max(64, 2 * n_reads)
     while True:
         cand_read = np.zeros(cap, np.int32)
@@ -661,20 +659,63 @@ def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
         cand_nseg = np.zeros(cap, np.int32)
         segs = tuple(np.zeros((cap, max_segments), np.int32)
                      for _ in range(5))
-        n = lib.stage_seed_batch_c(
+        n = call(cap, cand_read.ctypes.data, cand_strand.ctypes.data,
+                 cand_chrom.ctypes.data, cand_tbase.ctypes.data,
+                 cand_nseg.ctypes.data, *(s.ctypes.data for s in segs))
+        if n >= 0:
+            return (int(n), cand_read, cand_strand, cand_chrom,
+                    cand_tbase, cand_nseg, segs)
+        cap = -n + 16
+
+
+def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
+                            k: int, w: int, max_occ: int, merge_gap: int,
+                            index, max_intron: int,
+                            max_segments: int = 512):
+    """Phase A: seed + prepare every (read, orientation, chromosome)
+    candidate in one C call, packed straight into the chain kernel's
+    zero-padded (cap, max_segments) int32 input rows. Returns
+    (n_cand, cand_read, cand_strand, cand_chrom, cand_tbase, cand_nseg,
+    (qs, qe, ts, te, cov))."""
+    lib = load_native()
+    n_reads = len(read_off) - 1
+    pos_is_u32 = 1 if index.sorted_positions.dtype == np.uint32 else 0
+    return _stage_candidates(
+        lambda cap, *out: lib.stage_seed_batch_c(
             codes_all.ctypes.data, read_off.ctypes.data, n_reads,
             k, w, max_occ, merge_gap,
             index.sorted_hashes.ctypes.data, index.bucket_lo.ctypes.data,
             index.bucket_bits, index.sorted_positions.ctypes.data,
             pos_is_u32, index.chrom_offsets.ctypes.data,
-            len(index.chrom_offsets), max_intron, max_segments, cap,
-            cand_read.ctypes.data, cand_strand.ctypes.data,
-            cand_chrom.ctypes.data, cand_tbase.ctypes.data,
-            cand_nseg.ctypes.data, *(s.ctypes.data for s in segs))
-        if n >= 0:
-            return (int(n), cand_read, cand_strand, cand_chrom,
-                    cand_tbase, cand_nseg, segs)
-        cap = -n + 16
+            len(index.chrom_offsets), max_intron, max_segments, cap, *out),
+        n_reads, max_segments)
+
+
+def native_stage_seed_anchors(anchor_off: np.ndarray, anchor_q: np.ndarray,
+                              anchor_g: np.ndarray, n_reads: int, k: int,
+                              merge_gap: int, index, max_intron: int,
+                              max_segments: int = 512):
+    """Phase A from anchors a hash-sharded lookup found: orientation
+    2r + s (s = 0 forward, 1 reverse) of read r holds anchors
+    anchor_off[2r+s]:anchor_off[2r+s+1] (query position anchor_q, global
+    genome position anchor_g). The same diagonal collapse, preparation
+    and packing as `native_stage_seed_batch`, whose tuple it returns."""
+    lib = load_native()
+    off = np.ascontiguousarray(anchor_off, np.int64)
+    q = np.ascontiguousarray(anchor_q, np.int64)
+    g = np.ascontiguousarray(anchor_g, np.int64)
+    if len(off) != 2 * n_reads + 1 or off[0] != 0 or \
+            off[-1] != len(q) or len(g) != len(q) or \
+            (len(off) > 1 and np.any(np.diff(off) < 0)):
+        raise ValueError("anchor_off: 2 * n_reads + 1 ascending offsets "
+                         "into anchor_q / anchor_g expected")
+    chrom_offsets = np.ascontiguousarray(index.chrom_offsets, np.int64)
+    return _stage_candidates(
+        lambda cap, *out: lib.stage_seed_anchors_c(
+            off.ctypes.data, q.ctypes.data, g.ctypes.data, n_reads, k,
+            merge_gap, chrom_offsets.ctypes.data, len(chrom_offsets),
+            max_intron, max_segments, cap, *out),
+        n_reads, max_segments)
 
 
 def native_stage_fill_batch(codes_all: np.ndarray, read_off: np.ndarray,

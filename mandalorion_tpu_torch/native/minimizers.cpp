@@ -131,6 +131,57 @@ extern "C" {
 // Returns the segment count written, or -needed if cap is too small
 // (caller re-invokes with a larger cap).
 struct Seg { int32_t chrom; int64_t qs, qe, ts, te, na, cov; };
+struct Anchor { int32_t chrom; int64_t diag, t, q; };
+
+// chrom = searchsorted(chrom_offsets, g, 'right') - 1
+static inline int32_t chrom_of(int64_t g, const int64_t* chrom_offsets,
+                               int64_t n_chroms) {
+    int64_t cl = 0, cr = n_chroms;
+    while (cl < cr) {
+        int64_t mid = (cl + cr) >> 1;
+        if (chrom_offsets[mid] <= g) cl = mid + 1; else cr = mid;
+    }
+    return (int32_t)(cl - 1);
+}
+
+// Sort anchors by (chrom, diag, t) and collapse maximal same-diagonal
+// runs with spacing <= merge_gap + k into segments (appended to out):
+// align/chain.py collapse_anchors. Shared by build_segments (anchors of
+// the replicated index) and stage_seed_anchors_c (anchors of a
+// hash-sharded index's lookup).
+static void collapse_anchor_runs(std::vector<Anchor>& anchors, int32_t k,
+                                 int32_t merge_gap, std::vector<Seg>& out) {
+    if (anchors.empty()) return;
+    std::sort(anchors.begin(), anchors.end(),
+              [](const Anchor& a, const Anchor& b) {
+                  if (a.chrom != b.chrom) return a.chrom < b.chrom;
+                  if (a.diag != b.diag) return a.diag < b.diag;
+                  return a.t < b.t;
+              });
+
+    int64_t seg_start = 0;
+    auto flush = [&](int64_t s, int64_t e) {
+        // anchor-union coverage: k for the first anchor, min(k, dt) for
+        // each following same-diagonal anchor (Segment.cov in chain.py)
+        int64_t cov = k;
+        for (int64_t i = s + 1; i < e; i++) {
+            int64_t dt = anchors[i].t - anchors[i - 1].t;
+            cov += dt < k ? dt : k;
+        }
+        out.push_back({anchors[s].chrom, anchors[s].q,
+                       anchors[e - 1].q + k, anchors[s].t,
+                       anchors[e - 1].t + k, e - s, cov});
+    };
+    for (size_t i = 1; i < anchors.size(); i++) {
+        const Anchor &p = anchors[i - 1], &c = anchors[i];
+        if (c.chrom != p.chrom || c.diag != p.diag
+            || c.t - p.t > merge_gap + k) {
+            flush(seg_start, (int64_t)i);
+            seg_start = (int64_t)i;
+        }
+    }
+    flush(seg_start, (int64_t)anchors.size());
+}
 
 // minimizers -> bucketed lookup -> anchor expansion -> diagonal collapse.
 // Shared by seed_segments_c and seed_chain_c; output sorted by
@@ -152,7 +203,6 @@ static void build_segments(
     int64_t nmin = minimizers_c(codes, n, k, w, mpos.data(), mhash.data());
     if (nmin == 0) return;
 
-    struct Anchor { int32_t chrom; int64_t diag, t, q; };
     std::vector<Anchor> anchors;
     const uint32_t* pos32 = (const uint32_t*)sorted_positions;
     const int64_t* pos64 = (const int64_t*)sorted_positions;
@@ -224,45 +274,11 @@ static void build_segments(
         int64_t lo = rlo[i], l = rlo[i] + rcnt[i];
         for (int64_t j = lo; j < l; j++) {
             int64_t g = pos_is_u32 ? (int64_t)pos32[j] : pos64[j];
-            // chrom = searchsorted(chrom_offsets, g, 'right') - 1
-            int64_t cl = 0, cr = n_chroms;
-            while (cl < cr) {
-                int64_t mid = (cl + cr) >> 1;
-                if (chrom_offsets[mid] <= g) cl = mid + 1; else cr = mid;
-            }
-            anchors.push_back({(int32_t)(cl - 1), g - mpos[i], g, mpos[i]});
+            anchors.push_back({chrom_of(g, chrom_offsets, n_chroms),
+                               g - mpos[i], g, mpos[i]});
         }
     }
-    if (anchors.empty()) return;
-    std::sort(anchors.begin(), anchors.end(),
-              [](const Anchor& a, const Anchor& b) {
-                  if (a.chrom != b.chrom) return a.chrom < b.chrom;
-                  if (a.diag != b.diag) return a.diag < b.diag;
-                  return a.t < b.t;
-              });
-
-    int64_t seg_start = 0;
-    auto flush = [&](int64_t s, int64_t e) {
-        // anchor-union coverage: k for the first anchor, min(k, dt) for
-        // each following same-diagonal anchor (Segment.cov in chain.py)
-        int64_t cov = k;
-        for (int64_t i = s + 1; i < e; i++) {
-            int64_t dt = anchors[i].t - anchors[i - 1].t;
-            cov += dt < k ? dt : k;
-        }
-        out.push_back({anchors[s].chrom, anchors[s].q,
-                       anchors[e - 1].q + k, anchors[s].t,
-                       anchors[e - 1].t + k, e - s, cov});
-    };
-    for (size_t i = 1; i < anchors.size(); i++) {
-        const Anchor &p = anchors[i - 1], &c = anchors[i];
-        if (c.chrom != p.chrom || c.diag != p.diag
-            || c.t - p.t > merge_gap + k) {
-            flush(seg_start, (int64_t)i);
-            seg_start = (int64_t)i;
-        }
-    }
-    flush(seg_start, (int64_t)anchors.size());
+    collapse_anchor_runs(anchors, k, merge_gap, out);
 }
 
 int64_t seed_segments_c(
@@ -1404,6 +1420,60 @@ void lookup_ranges_c(const uint64_t* sorted_hashes, const int64_t* bucket_lo,
 // + emit; tests/test_stage_native.py asserts end-to-end byte equality).
 // Replaces minimap2's role at Mando.py:316-319 on the device route.
 
+// The chain kernel's candidate rows: per candidate its read, strand,
+// chromosome, target base and segment count, and (cap, max_segments)
+// int32 planes of prepared segments. The caller zeroes the planes
+// (padding rows must stay zero).
+struct CandidateRows {
+    int64_t max_segments, cap;
+    int32_t* read; int8_t* strand; int32_t* chrom; int64_t* tbase;
+    int32_t* nseg;
+    int32_t *qs, *qe, *ts, *te, *cov;
+};
+
+// One (read, orientation)'s segments (sorted by chromosome, as
+// collapse_anchor_runs leaves them) as candidates, one a chromosome in
+// ascending order: prepare_segments applied, t normalized to the
+// candidate's min t_start. Counts every candidate in nc, writes those
+// below the cap.
+static void pack_candidates(const std::vector<Seg>& segs, int64_t read,
+                            int32_t strand, int64_t max_intron,
+                            std::vector<Seg>& group, CandidateRows& o,
+                            int64_t& nc) {
+    size_t at = 0;
+    while (at < segs.size()) {
+        int32_t c = segs[at].chrom;
+        group.clear();
+        while (at < segs.size() && segs[at].chrom == c)
+            group.push_back(segs[at++]);
+        prepare_segs(group, max_intron, o.max_segments);
+        if (group.empty()) continue;  // cannot happen (prepare never
+        // empties a non-empty group); defensive only
+        if (nc < o.cap) {
+            int64_t tbase = group[0].ts;
+            for (const Seg& s : group)
+                tbase = s.ts < tbase ? s.ts : tbase;
+            o.read[nc] = (int32_t)read;
+            o.strand[nc] = (int8_t)strand;
+            o.chrom[nc] = c;
+            o.tbase[nc] = tbase;
+            o.nseg[nc] = (int32_t)group.size();
+            int64_t row = nc * o.max_segments;
+            for (size_t i = 0; i < group.size(); i++) {
+                const Seg& s = group[i];
+                o.qs[row + i] = (int32_t)s.qs;
+                o.qe[row + i] = (int32_t)s.qe;
+                o.ts[row + i] = (int32_t)(s.ts - tbase);
+                o.te[row + i] = (int32_t)(s.te - tbase);
+                // score_len: anchor-covered length, span when unknown
+                // (Segment.score_len)
+                o.cov[row + i] = (int32_t)(s.cov > 0 ? s.cov : s.qe - s.qs);
+            }
+        }
+        nc++;
+    }
+}
+
 // Phase A — seed every (read, orientation, chromosome) candidate and pack
 // prepared segments straight into the chain kernel's (cap, max_segments)
 // int32 input rows (prepare_segments applied, t normalized per candidate
@@ -1423,6 +1493,9 @@ int64_t stage_seed_batch_c(
     int32_t* seg_qs, int32_t* seg_qe, int32_t* seg_ts, int32_t* seg_te,
     int32_t* seg_cov) {
     static const uint8_t COMP[5] = {3, 2, 1, 0, 4};
+    CandidateRows o{max_segments, cap, cand_read, cand_strand, cand_chrom,
+                    cand_tbase, cand_nseg, seg_qs, seg_qe, seg_ts, seg_te,
+                    seg_cov};
     std::vector<uint8_t> rc;
     std::vector<Seg> segs, group;
     int64_t nc = 0;
@@ -1440,42 +1513,46 @@ int64_t stage_seed_batch_c(
             build_segments(qc, n, k, w, max_occ, merge_gap, sorted_hashes,
                            bucket_lo, bucket_bits, sorted_positions,
                            pos_is_u32, chrom_offsets, n_chroms, segs);
-            size_t at = 0;
-            while (at < segs.size()) {
-                int32_t c = segs[at].chrom;
-                group.clear();
-                while (at < segs.size() && segs[at].chrom == c)
-                    group.push_back(segs[at++]);
-                prepare_segs(group, max_intron, max_segments);
-                if (group.empty()) continue;  // cannot happen (prepare
-                // never empties a non-empty group); defensive only
-                if (nc < cap) {
-                    int64_t tbase = group[0].ts;
-                    for (const Seg& s : group)
-                        tbase = s.ts < tbase ? s.ts : tbase;
-                    cand_read[nc] = (int32_t)r;
-                    cand_strand[nc] = (int8_t)strand;
-                    cand_chrom[nc] = c;
-                    cand_tbase[nc] = tbase;
-                    cand_nseg[nc] = (int32_t)group.size();
-                    int32_t* qs = seg_qs + nc * max_segments;
-                    int32_t* qe = seg_qe + nc * max_segments;
-                    int32_t* ts = seg_ts + nc * max_segments;
-                    int32_t* te = seg_te + nc * max_segments;
-                    int32_t* cv = seg_cov + nc * max_segments;
-                    for (size_t i = 0; i < group.size(); i++) {
-                        const Seg& s = group[i];
-                        qs[i] = (int32_t)s.qs;
-                        qe[i] = (int32_t)s.qe;
-                        ts[i] = (int32_t)(s.ts - tbase);
-                        te[i] = (int32_t)(s.te - tbase);
-                        // score_len: anchor-covered length, span when
-                        // unknown (Segment.score_len)
-                        cv[i] = (int32_t)(s.cov > 0 ? s.cov : s.qe - s.qs);
-                    }
-                }
-                nc++;
+            pack_candidates(segs, r, strand, max_intron, group, o, nc);
+        }
+    }
+    return nc <= cap ? nc : -nc;
+}
+
+// Phase A from a hash-sharded index: the same candidates as
+// stage_seed_batch_c, from each (read, orientation)'s anchors as the
+// sharded lookup found them (after the max_occ filter and the per-read
+// anchor budget). Orientation 2r + s (s = 0 forward, 1 reverse) holds
+// anchors anchor_off[2r+s] .. anchor_off[2r+s+1] - 1: query position q,
+// global genome position g, in any order. Returns as stage_seed_batch_c.
+int64_t stage_seed_anchors_c(
+    const int64_t* anchor_off, const int64_t* anchor_q,
+    const int64_t* anchor_g, int64_t n_reads, int32_t k, int32_t merge_gap,
+    const int64_t* chrom_offsets, int64_t n_chroms,
+    int64_t max_intron, int64_t max_segments, int64_t cap,
+    int32_t* cand_read, int8_t* cand_strand, int32_t* cand_chrom,
+    int64_t* cand_tbase, int32_t* cand_nseg,
+    int32_t* seg_qs, int32_t* seg_qe, int32_t* seg_ts, int32_t* seg_te,
+    int32_t* seg_cov) {
+    CandidateRows o{max_segments, cap, cand_read, cand_strand, cand_chrom,
+                    cand_tbase, cand_nseg, seg_qs, seg_qe, seg_ts, seg_te,
+                    seg_cov};
+    std::vector<Anchor> anchors;
+    std::vector<Seg> segs, group;
+    int64_t nc = 0;
+    for (int64_t r = 0; r < n_reads; r++) {
+        for (int32_t strand = 0; strand < 2; strand++) {
+            int64_t a0 = anchor_off[2 * r + strand];
+            int64_t a1 = anchor_off[2 * r + strand + 1];
+            anchors.clear();
+            for (int64_t a = a0; a < a1; a++) {
+                int64_t g = anchor_g[a], q = anchor_q[a];
+                anchors.push_back({chrom_of(g, chrom_offsets, n_chroms),
+                                   g - q, g, q});
             }
+            segs.clear();
+            collapse_anchor_runs(anchors, k, merge_gap, segs);
+            pack_candidates(segs, r, strand, max_intron, group, o, nc);
         }
     }
     return nc <= cap ? nc : -nc;

@@ -10,18 +10,23 @@ route (chain and DP kernels on --device) by default; the host route
     mando-tpu-torch ... --chain_backend native --dp_backend numpy
 
 --consensus_backend device runs module D's graph POA through the POA
-kernels on --device. --devices > 1 and --index_backend sharded are not
-yet ported and raise.
+kernels on --device. --devices N > 1 installs an N-shard mesh of --device
+around the run (parallel.mesh.make_mesh: N distinct cards, or N virtual
+shards on the CPU); every batched device dispatch shards over it, with
+byte-identical results. --index_backend sharded splits the genome index
+into hash ranges over that mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
 
 from mandalorion_tpu_torch.config import config_from_args
+from mandalorion_tpu_torch.parallel.mesh import make_mesh, use_mesh
 from mandalorion_tpu_torch.pipeline.stages import (
     VERSION, Paths, run_pipeline)
 
@@ -86,12 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "POA kernels on --device)")
     p.add_argument("--index_backend", default="replicated",
                    choices=["replicated", "sharded"],
-                   help="genome index placement: replicated per host; "
-                        "sharded (hash ranges over a device mesh) is not "
-                        "yet ported")
+                   help="genome index placement: replicated per host, or "
+                        "sharded by hash range over the device mesh "
+                        "(requires --devices > 1 or an installed mesh)")
     p.add_argument("--devices", default=0, type=int,
-                   help="devices to shard the batched dispatches over; "
-                        "more than one is not yet ported")
+                   help="install an N-device mesh around the run: every "
+                        "batched device dispatch (chain DP, gap-fill DP, "
+                        "POA, quant merge) shards over it; 0 = no mesh "
+                        "(single device). Results are byte-identical at "
+                        "any N")
     p.add_argument("--index_cache", default="", type=str,
                    help="persist/reuse the genome minimizer index at this"
                         " .npz path (minimap2 .mmi analogue); rebuilt"
@@ -107,15 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(args) -> None:
-    if int(args.devices or 0) > 1:
-        raise NotImplementedError("--devices is not yet ported to "
-                                  "mandalorion_tpu_torch")
-    if args.index_backend == "sharded":
-        raise NotImplementedError("--index_backend sharded is not yet "
-                                  "ported to mandalorion_tpu_torch")
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     parser = build_parser()
@@ -123,7 +122,6 @@ def main(argv=None) -> int:
         parser.print_help()
         return 0
     args = parser.parse_args(argv)
-    _not_ported(args)
     cfg = config_from_args(args)
     if args.external_sam:
         paths = Paths(args.path)
@@ -136,8 +134,12 @@ def main(argv=None) -> int:
             os.remove(stale)
         if "A" in cfg.modules:
             cfg = cfg.replace(modules=cfg.modules.replace("A", ""))
-    run_pipeline(args.path, args.genome_sequence, args.genome_annotation,
-                 args.Consensus_reads, cfg, device=args.device)
+    mesh = (make_mesh(int(args.devices), device=args.device)
+            if int(args.devices or 0) > 1 else None)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        run_pipeline(args.path, args.genome_sequence,
+                     args.genome_annotation, args.Consensus_reads, cfg,
+                     device=args.device)
     return 0
 
 

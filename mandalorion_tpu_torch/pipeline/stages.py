@@ -21,6 +21,12 @@ graph consensus runs the native C++ engine, or with
 (poa/kernels.py), in this process after the forked prepare workers have
 returned.
 
+Mesh. Under parallel.mesh.use_mesh (the CLI's --devices N) module A's
+chain and DP dispatches, module D's POA chunks and module Q's count
+matrix shard over the mesh, in this process only: no forked worker
+issues a collective. index_backend 'sharded' under a mesh needs the
+device route.
+
 Forking. One rule, `_may_fork(runs_device_code)`: workers that run host
 code only (module A's host route, P, D's prepare phase, F) may fork even
 after CUDA is initialised, because they never touch the inherited CUDA
@@ -59,6 +65,7 @@ from mandalorion_tpu_torch.io.gtf import (
 from mandalorion_tpu_torch.io.psl import (
     PslRecord, format_psl, parse_psl_line, read_psl, sort_psl_file)
 from mandalorion_tpu_torch.io.sam import sam_to_psl
+from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
 from mandalorion_tpu_torch.pipeline.observe import StageTimer
 from mandalorion_tpu_torch.poa.consensus import determine_consensus_batch
 from mandalorion_tpu_torch.runtime import fork_ok, resolve_device
@@ -544,6 +551,12 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
     one is selected, so a run on the host routes never touches CUDA."""
     cfg = cfg or PipelineConfig()
     route = align_route(cfg.align)
+    if route == "host" and cfg.align.index_backend == "sharded" \
+            and pipeline_mesh() is not None:
+        raise ValueError("index_backend='sharded' under a mesh runs on the "
+                         "device route (chain_backend and dp_backend "
+                         "'device'); the host route's forked workers hold "
+                         "no mesh")
     if route == "device" or cfg.poa.backend == "device":
         device = resolve_device(device)
     paths = Paths(out_path)

@@ -70,6 +70,8 @@ import torch
 
 from mandalorion_tpu_torch import _build
 from mandalorion_tpu_torch.native import load_native
+from mandalorion_tpu_torch.parallel.mesh import (
+    fetch_global, pad_rows, pipeline_mesh)
 from mandalorion_tpu_torch.poa.graph import NEG, PoaGraph, PoaParams
 from mandalorion_tpu_torch.runtime import LaunchCounter, resolve_device
 
@@ -869,11 +871,37 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
     (recs, counts) run-compressed records with walk="sweep" (the caller
     picks per chunk with `chunk_walk`). Forward and walk run back to back
     on one stream; fetching the walk's two outputs is the chunk's one
-    synchronisation."""
+    synchronisation.
+
+    Under a pipeline mesh the chunk's problems shard in contiguous blocks
+    over the mesh (padding problems all zero: nn = 0, ql = 0, band 0),
+    each of this process's shards runs forward and walk on its own
+    device, and the walks' outputs gather back in shard order; `device`
+    is not used then."""
     if walk not in WALKS:
         raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
+    arrays = (base, preds, nn, ends, qq, ql, band)
+    mesh = pipeline_mesh()
+    if mesh is None:
+        rows, counts = _forward_and_walk(arrays, W, l_cap, params, device,
+                                         observer, walk)
+        return rows.cpu().numpy(), counts.cpu().numpy()
+    B = len(nn)
+    _padded, slices = mesh.shard_slices(B)
+    rows, counts = fetch_global(mesh, [
+        _forward_and_walk([pad_rows(a, lo, hi) for a in arrays], W, l_cap,
+                          params, dev, observer, walk)
+        for dev, lo, hi in slices])
+    return rows[:B], counts[:B]
+
+
+def _forward_and_walk(arrays, W: int, l_cap: int, params: PoaParams,
+                      device: torch.device, observer: Optional[RunObserver],
+                      walk: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward and walk of one chunk's problems on `device`, on the
+    current stream; the walk's two outputs stay there."""
     t_base, t_preds, t_nn, t_ends, t_qq, t_ql, t_band = problems_from_numpy(
-        base, preds, nn, ends, qq, ql, band, device)
+        *arrays, device)
     timed = observer is not None and observer.time_kernels \
         and device.type == "cuda"
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
@@ -892,7 +920,7 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
         observer.events["poa_fwd"].append((marks[0], marks[1]))
         observer.events["poa_sweep" if walk == "sweep" else "poa_walk"
                         ].append((marks[1], marks[2]))
-    return rows.cpu().numpy(), counts.cpu().numpy()
+    return rows, counts
 
 
 def _chunk_items(n_cap: int, W: int) -> int:

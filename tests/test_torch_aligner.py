@@ -153,8 +153,19 @@ def test_cuda_without_a_card_raises(tmp_path):
         TorchSpliceAligner.from_aligner(host, device="cuda")
 
 
-def test_sharded_index_not_ported():
-    with pytest.raises(NotImplementedError):
-        TorchSpliceAligner({"chr1": "ACGT" * 100},
-                           AlignConfig(index_backend="sharded"),
-                           device="cpu")
+def test_sharded_index_not_ported(tmp_path):
+    """index_backend='sharded' now runs: without a mesh the index stays
+    replicated (the reference's rule); under a three-shard CPU mesh the
+    seed lookups go through the hash-range shards and the records equal
+    the host aligner's."""
+    from mandalorion_tpu_torch.config import AlignConfig as PortConfig
+    from mandalorion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    genome, reads = _dataset(tmp_path, seed=3, n_genes=2, reads_per_gene=8)
+    cfg = PortConfig(index_backend="sharded")
+    assert TorchSpliceAligner(genome, cfg, device="cpu")._sharded is None
+    host = SpliceAligner(genome, AlignConfig())
+    with use_mesh(make_mesh(3, device="cpu")):
+        port = TorchSpliceAligner(genome, cfg, device="cpu")
+        assert port._sharded is not None and port._sharded.n_shards == 3
+        assert len(_same(port, host, reads + [("junk", "ACGT" * 8)])) \
+            > len(reads) // 2

@@ -55,6 +55,9 @@ def _port_sources():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "mandalorion_tpu_torch.pipeline.cli" in mods and len(mods) >= 40
+    assert {"mandalorion_tpu_torch.parallel",
+            "mandalorion_tpu_torch.parallel.mesh",
+            "mandalorion_tpu_torch.parallel.dist"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -79,6 +82,30 @@ def test_no_port_source_imports_the_jax_package():
         assert not tops & FORBIDDEN, (path, tops & FORBIDDEN)
         checked += 1
     assert checked >= 40
+
+
+def _exported(init_path):
+    with open(init_path) as fh:
+        tree = ast.parse(fh.read())
+    return {a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+def test_parallel_exports_the_reference_names():
+    """parallel/ is a counterpart of mandalorion_tpu/parallel/ (read as
+    source: the reference's imports jax): the same modules, the same
+    names exported from the package, and no import of jax or the JAX
+    package in any of them."""
+    ref = os.path.join(ROOT, "mandalorion_tpu", "parallel")
+    port = os.path.join(PORT, "parallel")
+    assert sorted(f for f in os.listdir(port) if f.endswith(".py")) == \
+        sorted(f for f in os.listdir(ref) if f.endswith(".py")) == \
+        ["__init__.py", "dist.py", "mesh.py"]
+    assert _exported(os.path.join(port, "__init__.py")) == \
+        _exported(os.path.join(ref, "__init__.py"))
+    for f in ("__init__.py", "dist.py", "mesh.py"):
+        with open(os.path.join(port, f)) as fh:
+            assert not _imported_tops(ast.parse(fh.read())) & FORBIDDEN, f
 
 
 def test_chip_smoke_imports_only_the_port():

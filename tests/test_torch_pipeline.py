@@ -59,10 +59,16 @@ def test_cli_matches_reference(tmp_path, dataset):
 @pytest.mark.parametrize("flags", [["--devices", "2"],
                                    ["--index_backend", "sharded"]])
 def test_cli_rejects_unported_options(tmp_path, dataset, flags):
+    """The two options the port once refused now run: --devices 2
+    shards every dispatch over two CPU shards; --index_backend sharded
+    without a mesh keeps the replicated index, as the reference does.
+    Byte-identical to the reference either way."""
     genome, ann, reads = dataset
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["-p", str(tmp_path / "x"), "-G", genome, "-g", ann,
-                  "-f", reads, "--device", "cpu", *flags])
+    reference_run(str(tmp_path / "ref"), *dataset, ReferenceConfig(threads=1))
+    assert cli.main(["-p", str(tmp_path / "port"), "-G", genome, "-g", ann,
+                     "-f", reads, "-t", "1", "--device", "cpu",
+                     *flags]) == 0
+    assert _artifacts(tmp_path / "port") == _artifacts(tmp_path / "ref")
 
 
 def test_cli_device_choice():
