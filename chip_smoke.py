@@ -95,7 +95,29 @@ line is printed only when every phase passed:
    stage seconds beside turn 0's, peak device memory, and the
    collectives' count and host ms are printed; (d) `make_mesh(2)` on the
    one card must raise. The group is destroyed at the phase's end.
-6. one JSON line with every kernel, the nvidia-smi line, then the result
+6. mixed routes (the reference's other (chain_backend, dp_backend)
+   pairs), after the mesh: (a) the DP problem list entry
+   `solve_dp_device` on the card against its plain version on the card
+   (`rowscan=True`) and the host solver `solve_dp_native`, exactly, on
+   the first read batch's problems as the Python staging makes them
+   (`_native_picks` + `_fill_picks`: global, extend_right and
+   extend_left gap fills) with hand-made ones (over-size nq 2049 and nt
+   2304, empty sides, dead extensions, targets of 1, 2303 and 2304 bases
+   side by side; the 2048 x 2303 envelope once), under the default
+   scoring, end_bonus 12, zdrop 40 and both; the dp_fused counter must
+   move for the entry and not for its plain version; timed on the first
+   batch: the entry's call (host clock), its launches alone and the
+   plain version (CUDA events), beside the staged entry `solve_dp_fused`
+   on the C fill stage's descriptors of the same reads (host clock) and
+   its launches alone, with the bound from 23 operations a cell; (b)
+   slice-20k in this process as the turns, with `--consensus_backend
+   device`, under chain device / dp numpy, chain native / dp device and
+   chain device / dp rowscan: the six artifacts must equal the host
+   route's, and the counters, set to 0 before each run, must show the
+   chain kernel exactly when the chain is 'device', the DP kernel exactly
+   when the DP is 'device', and the POA kernels always; stage seconds
+   beside turn 0's and peak device memory are printed.
+7. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -111,7 +133,9 @@ is held by the CPU tests (tests/test_torch_*.py).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import signal
@@ -132,6 +156,7 @@ from mandalorion_tpu_torch.align.aligner import (
     TorchSpliceAligner, sharded_seed_hits)
 from mandalorion_tpu_torch.align.encode import (
     encode, minimizers, revcomp_codes)
+from mandalorion_tpu_torch.align.extend import DpProblem, solve_dp_native
 from mandalorion_tpu_torch.native import native_poa_consensus
 from mandalorion_tpu_torch.parallel import dist as pdist
 from mandalorion_tpu_torch.parallel import mesh as pmesh
@@ -659,6 +684,19 @@ def check_chain_sets(rng, device, reps: int = 5) -> int:
     return err
 
 
+def dp_bound(chunks):
+    """(bound_ms, bound_by, cells, bytes) of the DP over dp_chunks'
+    chunks: every input read once, every output written once."""
+    d_bytes = d_cells = 0
+    for _idx, desc, steps in chunks:
+        c_nq, c_nt = desc[2].long(), desc[3].long()
+        # query and target bytes, 25 B of descriptors, meta + ks, buf
+        d_bytes += int((c_nq + c_nt).sum()) + len(c_nq) * (25 + 20 + steps)
+        d_cells += int((c_nq * (c_nt + 1)).sum())
+    return (*bound(d_bytes, d_cells * DP_OPS_PER_CELL, PEAK_I32_OPS_S),
+            d_cells, d_bytes)
+
+
 def check_first_batch(aligner, reads, device):
     """Both kernels against their plain versions on the first read batch's
     real inputs (module A's batch: max(batch_reads, n_reads / 3) reads),
@@ -707,16 +745,9 @@ def check_first_batch(aligner, reads, device):
     log(f"dp: first batch {n_dev} device problems of {len(nq)} in "
         f"{len(chunks)} chunks (max rows {int(nq[nq <= 2048].max())}), "
         f"kernel == plain; {d_ms:.3f} ms vs plain {d_plain:.3f} ms")
-    # bounds: every input read once, every output written once
-    d_bytes = d_cells = 0
-    for _idx, desc, steps in chunks:
-        c_nq, c_nt = desc[2].long(), desc[3].long()
-        # query and target bytes, 25 B of descriptors, meta + ks, buf
-        d_bytes += int((c_nq + c_nt).sum()) + len(c_nq) * (25 + 20 + steps)
-        d_cells += int((c_nq * (c_nt + 1)).sum())
-    d_bound = bound(d_bytes, d_cells * DP_OPS_PER_CELL, PEAK_I32_OPS_S)
-    log(f"bounds: dp {d_bound[0]:.6f} ms by {d_bound[1]} ({d_cells} cells, "
-        f"{d_bytes} bytes)")
+    d_bound = dp_bound(chunks)
+    log(f"bounds: dp {d_bound[0]:.6f} ms by {d_bound[1]} ({d_bound[2]} "
+        f"cells, {d_bound[3]} bytes)")
     torch.cuda.synchronize()
     t0 = time.time()
     aligner.map_batch(reads)
@@ -1463,17 +1494,19 @@ def check_mesh_padding(mesh, aligner, reads, largest, device, rng) -> None:
         f"{padding_batches(len(l_arrays[2]))}) == the meshless calls")
 
 
-def run_mesh_route(out_dir, inputs, mesh, flags=()) -> dict:
+def run_in_process(out_dir, inputs, mesh=None, flags=()) -> dict:
     """The slice through `mando-tpu-torch --device cuda
-    --consensus_backend device [flags]` under `mesh`, every launch
-    counter and the collectives' statistics set to 0 just before."""
+    --consensus_backend device [flags]` in this process, under `mesh`
+    when one is given, every launch counter and the collectives'
+    statistics set to 0 just before."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for *_names, counter in KERNELS:
         counter.count = 0
     pmesh.COLLECTIVES.count, pmesh.COLLECTIVES.seconds = 0, 0.0
     t0 = time.time()
-    with pmesh.use_mesh(mesh):
+    with pmesh.use_mesh(mesh) if mesh is not None else \
+            contextlib.nullcontext():
         port_cli.main(["-p", out_dir, *inputs, "--device", "cuda",
                        "--consensus_backend", "device", *flags])
         torch.cuda.synchronize()
@@ -1509,7 +1542,7 @@ def mesh_phase(tmp, inputs, ref, turn0, aligner, reads, largest,
                 ("two shards of one card, sharded index", two,
                  ("--index_backend", "sharded"))):
             out_dir = os.path.join(tmp, f"mesh{mesh.size}")
-            run_ = run_mesh_route(out_dir, inputs, mesh, flags)
+            run_ = run_in_process(out_dir, inputs, mesh, flags)
             got = artifact_bytes(out_dir)
             for name in ARTIFACTS:
                 if got[name] != ref[name]:
@@ -1550,6 +1583,180 @@ def mesh_phase(tmp, inputs, ref, turn0, aligner, reads, largest,
             raise AssertionError("make_mesh(2) on one card did not raise")
     log(f"mesh: phase (a)-(d) passed, group destroyed, "
         f"{time.time() - t_phase:.1f}s")
+
+
+# ------------------------------------------------------------ mixed routes
+
+# the slice under the reference's mixed pairs, and what each must launch:
+# chain on the card for a device chain; the DP kernel for dp 'device' only
+# ('rowscan' runs its plain version on the card, 'numpy' the host solver)
+MIXED_PAIRS = (("device", "numpy"), ("native", "device"),
+               ("device", "rowscan"))
+MIXED_CFGS = (dict(), dict(end_bonus=12), dict(zdrop=40),
+              dict(end_bonus=12, zdrop=40))
+
+
+def hand_problems(rng) -> list:
+    """DpProblems beside the slice's: over-size (nq 2049, nt 2304), empty
+    sides, dead extensions, targets of 1, 2303 and 2304 bases side by
+    side, in each mode; and the 2048 x 2303 envelope."""
+    t = rng.integers(0, 4, 2304).astype(np.uint8)
+    q = t[:2049].copy()
+    hit = rng.random(len(q)) < 0.08
+    q[hit] = rng.integers(0, 4, int(hit.sum()))
+    empty = np.zeros(0, np.uint8)
+    out = []
+    for mode in ("global", "extend_right", "extend_left"):
+        out += [DpProblem(q, t[:300].copy(), mode),
+                DpProblem(q[:10].copy(), t, mode),
+                DpProblem(empty, t[:50].copy(), mode),
+                DpProblem(q[:40].copy(), empty, mode),
+                DpProblem(empty, empty, mode),
+                DpProblem(rng.integers(0, 4, 30).astype(np.uint8),
+                          rng.integers(0, 4, 45).astype(np.uint8), mode),
+                DpProblem(np.zeros(6, np.uint8), np.ones(9, np.uint8), mode),
+                DpProblem(q[:5].copy(), t[:1].copy(), mode),
+                DpProblem(q[:6].copy(), t[:2303].copy(), mode),
+                DpProblem(q[:7].copy(), t, mode)]
+    # the envelope once (phase 3 holds it in every mode): a team's layout
+    return out + [DpProblem(q[:2048].copy(), t[:2303].copy(),
+                            "extend_left")]
+
+
+def same_results(got, want, what) -> None:
+    bad = [k for k, (g, w) in enumerate(zip(got, want))
+           if (g.ops, g.q_len, g.t_len) != (w.ops, w.q_len, w.t_len)]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"mixed (a): {what}: {len(bad)} of "
+                             f"{len(want)} results differ (first {bad[:5]})")
+
+
+def launches_alone_ms(genome, oriented, read_off, probs, cfg, device):
+    """csrc/dp.cu's launches alone on solve_dp_fused's descriptors `probs`
+    (`dp_chunks`, buffers made beforehand), by CUDA events over 5 runs
+    after one untimed."""
+    oriented_t = torch.from_numpy(oriented).to(device)
+    chunks = list(kernels.dp_chunks(probs, read_off, device))
+    preps = [kernels.dp_prepare(kernels._launch_layout(
+        desc[2], desc[3], int(desc[2].max()), int(desc[3].max())), steps,
+        device) for _i, desc, steps in chunks]
+
+    def launches():
+        for (_i, desc, steps), prep in zip(chunks, preps):
+            kernels.dp_launch(genome, oriented_t, *desc, prep, cfg, steps)
+
+    launches()
+    return cuda_ms(launches, 5)
+
+
+def check_problem_lists(aligner, reads, device) -> None:
+    """(a): the DP problem list entry `solve_dp_device` on the card against
+    its plain version on the card (rowscan=True) and the host solver, on
+    the first read batch's problems from the Python staging (`_native_picks`
+    + `_fill_picks`) with the hand-made ones, under four scorings; the
+    launch counter must move for the entry and stay for its plain
+    version. Timed on the first batch's problems alone: the route's call
+    (host clock), its launches alone and the plain version on the same
+    descriptors (CUDA events), and the staged entry `solve_dp_fused` on the
+    C fill stage's descriptors of the same batch (host clock) with its
+    launches alone (CUDA events)."""
+    t0 = time.time()
+    staged = TorchSpliceAligner.from_aligner(
+        aligner, device, dataclasses.replace(aligner.cfg,
+                                             chain_backend="native"))
+    _pend, real = staged._fill_picks(reads, staged._native_picks(reads),
+                                     float(aligner.cfg.min_chain_score))
+    stage_s = time.time() - t0
+    hand = hand_problems(np.random.default_rng(8))
+    counter = kernels.DP_LAUNCHES
+    for extra in MIXED_CFGS:
+        cfg = dataclasses.replace(aligner.cfg, **extra)
+        problems = (real if not extra else real[:2000]) + hand
+        before = counter.count
+        got = kernels.solve_dp_device(problems, cfg, device)
+        launched = counter.count - before
+        plain = kernels.solve_dp_device(problems, cfg, device, rowscan=True)
+        if launched <= 0 or counter.count != before + launched:
+            raise AssertionError(f"mixed (a): launches {launched} for the "
+                                 f"entry, {counter.count - before - launched}"
+                                 f" for its plain version")
+        same_results(got, plain, f"{extra or 'default'}: kernel vs plain")
+        same_results(got, solve_dp_native(problems, cfg),
+                     f"{extra or 'default'}: kernel vs host solver")
+        log(f"mixed (a) {extra or 'default scoring'}: {len(problems)} "
+            f"problems ({len(hand)} hand-made), solve_dp_device on the card "
+            f"== its plain version on the card == solve_dp_native; "
+            f"{launched} dp_fused launches, 0 for the plain version")
+
+    cfg = aligner.cfg
+    idx, probs, oriented, read_off, targets = kernels.problem_batch(real)
+    genome = torch.from_numpy(targets).to(device)
+    chunks = list(kernels.dp_chunks(probs, read_off, device))
+    oriented_t = torch.from_numpy(oriented).to(device)
+
+    def plain():
+        for _i, desc, steps in chunks:
+            kernels.dp_fused_plain(genome, oriented_t, *desc, cfg, steps)
+
+    route_ms = host_ms(lambda: kernels.solve_dp_device(real, cfg, device), 3)
+    launch_ms = launches_alone_ms(genome, oriented, read_off, probs, cfg,
+                                  device)
+    plain_ms = cuda_ms(plain, 1)
+    codes_all, c_off, seeded = aligner.seed_batch(reads)
+    _st, _ch, c_oriented, _ro, _runs, c_probs = aligner.fill_batch(
+        codes_all, c_off, seeded, aligner.chain_batch(seeded))
+    fused_ms = host_ms(lambda: kernels.solve_dp_fused(
+        c_probs, c_oriented, c_off, aligner.genome_codes, cfg), 3)
+    c_launch_ms = launches_alone_ms(aligner.genome_codes, c_oriented, c_off,
+                                    c_probs, cfg, device)
+    b_ms, b_by, cells, n_bytes = dp_bound(chunks)
+    log(f"mixed (a) first batch ({len(reads)} reads, Python staging "
+        f"{stage_s:.1f}s): {len(real)} problems, {len(idx)} on the card in "
+        f"{len(chunks)} chunks ({cells} cells); solve_dp_device "
+        f"{route_ms:.3f} ms (host clock), its launches alone "
+        f"{launch_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events); the "
+        f"staged solve_dp_fused on the C fill's {len(c_probs[0])} "
+        f"descriptors {fused_ms:.3f} ms (host clock), its launches alone "
+        f"{c_launch_ms:.3f} ms (CUDA events); bound {b_ms:.6f} ms by {b_by} "
+        f"({n_bytes} bytes)")
+
+
+def mixed_phase(tmp, inputs, ref, turn0, aligner, reads, n_reads,
+                device) -> None:
+    """Phase 6, (a) on `reads` (the first read batch) and (b) on the
+    slice's n_reads."""
+    t_phase = time.time()
+    check_problem_lists(aligner, reads, device)
+    t0s = turn0["stages"]
+    for pair in MIXED_PAIRS:
+        out_dir = os.path.join(tmp, "mixed-" + "-".join(pair))
+        run_ = run_in_process(out_dir, inputs, flags=(
+            "--chain_backend", pair[0], "--dp_backend", pair[1]))
+        got = artifact_bytes(out_dir)
+        for name in ARTIFACTS:
+            if got[name] != ref[name]:
+                raise AssertionError(f"{name} under chain {pair[0]}, dp "
+                                     f"{pair[1]} differs from the host run")
+        launches = run_["launches"]
+        if (launches["chain_rows"] > 0) != (pair[0] == "device") or \
+                (launches["dp_fused"] > 0) != (pair[1] == "device") or \
+                min(launches["poa_fwd"], launches["poa_walk"]) <= 0:
+            raise AssertionError(f"chain {pair[0]}, dp {pair[1]}: launches "
+                                 f"{launches}")
+        stages = run_["stages"]
+        log(f"mixed (b) slice, chain {pair[0]}, dp {pair[1]}: "
+            f"{len(ARTIFACTS)} artifacts byte-identical to the host run; "
+            f"launches {launches}; APDFQ stages "
+            f"{n_reads / sum(stages.values()):.1f} reads/s (turn 0: "
+            f"{n_reads / sum(t0s.values()):.1f}), module "
+            f"A {n_reads / stages['A_alignment']:.1f} (turn 0: "
+            f"{n_reads / t0s['A_alignment']:.1f}); peak device memory "
+            f"{run_['peak']} bytes (turn 0: {turn0['peak']}); wall "
+            f"{run_['seconds']:.1f}s (turn 0: {turn0['seconds']:.1f}s)")
+        log(f"mixed (b) stage seconds, chain {pair[0]}, dp {pair[1]} | turn "
+            f"0: " + ", ".join(f"{k} {run_['stages'][k]:.2f} | {t0s[k]:.2f}"
+                               for k in t0s))
+    log(f"mixed: phase (a)-(b) passed, {time.time() - t_phase:.1f}s")
 
 
 def chain_only(device) -> None:
@@ -1694,6 +1901,8 @@ def main(argv) -> None:
         measured.update(check_poa_main_path(stats.largest, device))
         mesh_phase(tmp, inputs, ref, by_steps, aligner, reads,
                    stats.largest, device)
+        mixed_phase(tmp, inputs, ref, by_steps, aligner, reads[:batch],
+                    n_reads, device)
         del aligner, reads
 
     for banned in ("jax", "mandalorion_tpu"):

@@ -1,19 +1,34 @@
 """Splice-aware read-to-genome aligner (minimap2 `-ax splice:hq --cs=long
 -uf -G 400k --secondary=no` replacement, `Mando.py:316-319`): the host
-class `SpliceAligner` and its device route `TorchSpliceAligner`.
+class `SpliceAligner` and `TorchSpliceAligner`, which runs the routes
+that touch a device.
 
 Counterpart of mandalorion_tpu/align/aligner.py. Per read the host class
 runs seed -> chain -> gap fill -> DP -> extended-PSL emission in the
-native C++ library. `TorchSpliceAligner.map_batch` is the staged device
-route (the reference's `_map_batch_device_staged`), per batch:
+native C++ library. `TorchSpliceAligner.map_batch` runs the route that
+the configuration's (chain_backend, dp_backend) pair names, as the
+reference's `SpliceAligner.map_batch` does:
 
-    C seed (native_stage_seed_batch) -> chain DP (chain_kernel.chain_rows)
-      -> C fill (native_stage_fill_batch)
-      -> affine-gap DP + traceback (kernels.dp_fused)
-      -> C emit (native_stage_emit_batch)
+- chain 'device' (any DP): the staged route (the reference's
+  `_map_batch_device_staged`), per batch
+
+      C seed (native_stage_seed_batch) -> chain DP (chain_kernel.chain_rows)
+        -> C fill (native_stage_fill_batch)
+        -> affine-gap DP + traceback (kernels.solve_dp_fused)
+        -> C emit (native_stage_emit_batch)
+
+  where DP 'device' launches csrc/dp.cu, 'rowscan' runs its plain
+  version on the device, and 'numpy' leaves every problem to the emit
+  stage's host solver;
+- chain 'native' with DP 'device' or 'rowscan': per read the native
+  seed + chain (`_chain_both`) and the Python gap fill (`_fill`), then
+  the batch's DP problem list through `kernels.solve_dp_device`, then
+  `_emit` (the reference's Python-staged route);
+- chain 'native' with DP 'numpy': the host class's fused C call a read
+  (on the replicated index).
 
 The index's uint8 sequence codes are uploaded to the device once and stay
-there. Both classes give byte-identical records.
+there. Every route gives byte-identical records.
 
 Under a pipeline mesh (parallel.mesh.use_mesh) the chain and DP
 dispatches shard over the mesh's devices (the genome codes are uploaded
@@ -40,17 +55,34 @@ from mandalorion_tpu_torch.align.extend import (
     DpProblem, DpResult, solve_dp_native, splice_fill)
 from mandalorion_tpu_torch.align.index import (
     ANCHOR_BUDGET, cached_index, frequency_occ_cap)
-from mandalorion_tpu_torch.align.kernels import solve_dp_fused
+from mandalorion_tpu_torch.align.kernels import (
+    solve_dp_device, solve_dp_fused)
 from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch.io.psl import PslRecord
 from mandalorion_tpu_torch.native import (
     native_align_read, native_align_read_runs, native_emit_psl,
-    native_stage_emit_batch, native_stage_fill_batch,
+    native_seed_chain2, native_stage_emit_batch, native_stage_fill_batch,
     native_stage_seed_anchors, native_stage_seed_batch)
 from mandalorion_tpu_torch.parallel.dist import (
     IndexShards, place_index_shards, shard_index_arrays)
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
 from mandalorion_tpu_torch.runtime import resolve_device
+
+
+CHAIN_BACKENDS = ("device", "native")
+DP_BACKENDS = ("device", "rowscan", "numpy")
+
+
+def align_backends(cfg) -> Tuple[str, str]:
+    """cfg's (chain_backend, dp_backend); ValueError on a name the port
+    does not know."""
+    chain, dp = cfg.chain_backend, cfg.dp_backend
+    if chain not in CHAIN_BACKENDS or dp not in DP_BACKENDS:
+        raise ValueError(
+            f"chain_backend={chain!r}, dp_backend={dp!r}: the port knows "
+            f"chain {CHAIN_BACKENDS} x dp {DP_BACKENDS} (the reference's "
+            f"dp 'pallas' is 'device' here)")
+    return chain, dp
 
 
 @dataclass
@@ -361,11 +393,15 @@ class SpliceAligner:
             if pend is None:
                 continue
             modes = [p.mode for p in problems]
-            results = solve_dp_native(problems, cfg)
+            results = self._solve_dp(problems)
             rec = self._emit(pend, results, modes)
             if rec is not None:
                 out.append(rec)
         return out
+
+    def _solve_dp(self, problems: List[DpProblem]) -> List[DpResult]:
+        """The DP problem list's results: the host solver."""
+        return solve_dp_native(problems, self.cfg)
 
 
 def cfg_min_len(cfg: AlignConfig) -> float:
@@ -421,11 +457,12 @@ def sharded_seed_hits(shards: IndexShards, hashes: np.ndarray,
 
 
 class TorchSpliceAligner(SpliceAligner):
-    """SpliceAligner whose `map_batch` runs the staged device route on
-    `device` ('cuda' or 'cpu'; the CPU runs the kernels' plain PyTorch
-    versions), or on the mesh's devices when one is installed. Every
-    other method is the host aligner's, and `host_twin()` returns a plain
-    host SpliceAligner sharing the index (replicated)."""
+    """SpliceAligner whose `map_batch`, `map_batch_runs` and
+    `map_all_targets` run cfg's (chain_backend, dp_backend) route (the
+    module docstring) on `device` ('cuda' or 'cpu'; the CPU runs the
+    kernels' plain PyTorch versions), or on the mesh's devices when one
+    is installed. `host_twin()` returns a plain host SpliceAligner
+    sharing the index (replicated)."""
 
     def __init__(self, genome, cfg: Optional[AlignConfig] = None,
                  device="cuda"):
@@ -434,12 +471,15 @@ class TorchSpliceAligner(SpliceAligner):
         self._bind(dev)
 
     @classmethod
-    def from_aligner(cls, aligner: SpliceAligner, device="cuda"
+    def from_aligner(cls, aligner: SpliceAligner, device="cuda",
+                     cfg: Optional[AlignConfig] = None
                      ) -> "TorchSpliceAligner":
-        """A port aligner sharing `aligner`'s GenomeIndex (no rebuild)."""
+        """A port aligner sharing `aligner`'s GenomeIndex (no rebuild),
+        with `aligner`'s configuration or `cfg` (whose index parameters,
+        kmer, window and occurrence cap, must be the aligner's)."""
         dev = resolve_device(device)
         self = object.__new__(cls)
-        self.cfg = aligner.cfg
+        self.cfg = aligner.cfg if cfg is None else cfg
         self.index = aligner.index
         self.max_occ = aligner.max_occ
         self._bind(dev)
@@ -458,6 +498,7 @@ class TorchSpliceAligner(SpliceAligner):
         under a mesh, place this process's hash-range index shards on
         their mesh devices (without a mesh the index stays replicated, as
         in the reference)."""
+        align_backends(self.cfg)
         self.device = device
         # on the CPU this shares the index's numpy buffer
         self.genome_codes = torch.from_numpy(self.index.seq_codes).to(device)
@@ -482,6 +523,90 @@ class TorchSpliceAligner(SpliceAligner):
                     self.index.seq_codes).to(dev)
         return self._genome_on
 
+    def _chain_both(self, codes: np.ndarray):
+        """Best chain over both read orientations by the native seed +
+        chain (forward wins score ties): (chain, strand, chrom_idx,
+        oriented query codes), or None when neither orientation chains."""
+        cfg = self.cfg
+        idx = self.index
+        q0, qe, t0, te, _score, ci, strand = native_seed_chain2(
+            codes, cfg.kmer, cfg.window, self.max_occ, 100,
+            idx.sorted_hashes, idx.bucket_lo, idx.bucket_bits,
+            idx.sorted_positions, idx.chrom_offsets, cfg.min_intron,
+            cfg.max_intron)
+        if strand < 0 or len(q0) == 0:
+            return None
+        chain = [Segment(int(a), int(b), int(c), int(d))
+                 for a, b, c, d in zip(q0, qe, t0, te)]
+        if strand == 0:
+            return chain, "+", ci, codes
+        return chain, "-", ci, revcomp_codes(codes)
+
+    def _chain_for(self, qpos: np.ndarray, gpos: np.ndarray
+                   ) -> Tuple[Optional[List[Segment]], float, int]:
+        """Best chain of one read orientation from its anchors (query
+        position, global genome position), by the host chain a chromosome,
+        chromosomes ascending, a strictly higher score winning: (chain,
+        score, chrom_idx). The reference's `_chain_for` under a
+        hash-sharded index, from the lookup's hits."""
+        cfg = self.cfg
+        best_chain, best_score, best_ci = None, 0.0, -1
+        if len(gpos) == 0:
+            return best_chain, best_score, best_ci
+        ci, _local = self.index.position_to_chrom(gpos)
+        for c in np.unique(ci):
+            segs = collapse_anchors(qpos[ci == c], gpos[ci == c], cfg.kmer)
+            chain, score = chain_segments(
+                segs, min_intron=cfg.min_intron, max_intron=cfg.max_intron)
+            if chain and score > best_score:
+                best_chain, best_score, best_ci = chain, score, int(c)
+        return best_chain, best_score, best_ci
+
+    def _native_picks(self, reads: Sequence[Tuple[str, str]]) -> list:
+        """Each read's chain pick in `_chain_both`'s form with the native
+        chain. With a hash-sharded index every orientation of the batch
+        is looked up over the mesh at once (`_sharded_anchors`) and
+        chained on the host (`_chain_for`), forward winning ties."""
+        code_list = [encode(seq) for _name, seq in reads]
+        if self._sharded is None:
+            return [self._chain_both(codes) for codes in code_list]
+        off, anchor_q, anchor_g = self._sharded_anchors(code_list)
+        picks = []
+        for r, codes in enumerate(code_list):
+            (cf, sf, cif), (cr, sr, cir) = (
+                self._chain_for(anchor_q[off[o]:off[o + 1]],
+                                anchor_g[off[o]:off[o + 1]])
+                for o in (2 * r, 2 * r + 1))
+            if cf is None and cr is None:
+                picks.append(None)
+            elif sf >= sr:
+                picks.append((cf, "+", cif, codes))
+            else:
+                picks.append((cr, "-", cir, revcomp_codes(codes)))
+        return picks
+
+    def _sharded_anchors(self, code_list: List[np.ndarray]):
+        """Every orientation's anchors through the hash-sharded index, in
+        one lookup over the mesh (`sharded_seed_hits`): orientation 2r + s
+        (s = 0 forward, 1 reverse) of read r holds anchors
+        off[2r+s]:off[2r+s+1] of (anchor_q, anchor_g). Returns (off,
+        anchor_q, anchor_g)."""
+        cfg = self.cfg
+        mpos, hashes = [], []
+        for codes in code_list:
+            for qc in (codes, revcomp_codes(codes)):
+                p, h = minimizers(qc, cfg.kmer, cfg.window)
+                mpos.append(p)
+                hashes.append(h)
+        q_off = np.zeros(len(mpos) + 1, np.int64)
+        np.cumsum([len(p) for p in mpos], out=q_off[1:])
+        qidx, gpos = sharded_seed_hits(
+            self._sharded, np.concatenate(hashes) if hashes
+            else np.zeros(0, np.uint64), q_off, self.max_occ)
+        anchor_q = (np.concatenate(mpos) if mpos
+                    else np.zeros(0, np.int64))[qidx]
+        return np.searchsorted(qidx, q_off), anchor_q, gpos
+
     def seed_batch(self, reads: Sequence[Tuple[str, str]]):
         """C seed stage: (codes_all, read_off, seeded), seeded being
         native_stage_seed_batch's (n_cand, read, strand, chrom, tbase,
@@ -504,22 +629,9 @@ class TorchSpliceAligner(SpliceAligner):
 
     def _seed_sharded(self, code_list):
         cfg = self.cfg
-        mpos, hashes = [], []
-        for codes in code_list:
-            for qc in (codes, revcomp_codes(codes)):
-                p, h = minimizers(qc, cfg.kmer, cfg.window)
-                mpos.append(p)
-                hashes.append(h)
-        q_off = np.zeros(len(mpos) + 1, np.int64)
-        np.cumsum([len(p) for p in mpos], out=q_off[1:])
-        qidx, gpos = sharded_seed_hits(
-            self._sharded, np.concatenate(hashes) if hashes
-            else np.zeros(0, np.uint64), q_off, self.max_occ)
-        anchor_q = (np.concatenate(mpos) if mpos
-                    else np.zeros(0, np.int64))[qidx]
         return native_stage_seed_anchors(
-            np.searchsorted(qidx, q_off), anchor_q, gpos, len(code_list),
-            cfg.kmer, 100, self.index, cfg.max_intron)
+            *self._sharded_anchors(code_list), len(code_list), cfg.kmer,
+            100, self.index, cfg.max_intron)
 
     def chain_batch(self, seeded) -> np.ndarray:
         """Chain DP on the device: the packed int16 chain rows."""
@@ -541,10 +653,129 @@ class TorchSpliceAligner(SpliceAligner):
             cfg.end_bonus, cfg.zdrop, cfg.band_width, cfg.max_end_extend,
             cfg.splice_slack, cfg.noncanonical_penalty)
 
+    def dp_batch(self, probs, oriented: np.ndarray, read_off: np.ndarray):
+        """The DP of fill_batch's descriptors by cfg.dp_backend, as the
+        emit stage reads it: (meta, ks, buf, on_host). 'numpy' marks every
+        problem on_host, for the emit stage's host solver."""
+        dp = self.cfg.dp_backend
+        if dp == "numpy":
+            n = len(probs[1])
+            return (np.zeros((n, 4), np.int32), np.zeros(n, np.int32),
+                    np.zeros((n, 1), np.int8), np.ones(n, np.uint8))
+        return solve_dp_fused(probs, oriented, read_off, self._genome(),
+                              self.cfg, rowscan=dp == "rowscan")
+
+    def _solve_dp(self, problems: List[DpProblem]) -> List[DpResult]:
+        dp = self.cfg.dp_backend
+        if dp == "numpy":
+            return solve_dp_native(problems, self.cfg)
+        return solve_dp_device(problems, self.cfg, self.device,
+                               rowscan=dp == "rowscan")
+
+    def _device_picks(self, reads: Sequence[Tuple[str, str]]) -> list:
+        """Each read's chain pick in `_chain_both`'s form with the device
+        chain (the reference's `_chain_batch_device`): the C seed stage's
+        candidates, in order read, strand, chromosome; the chain kernel's
+        rows; per read the first candidate of strictly highest score whose
+        chain keeps a segment after the overlap trim (the fill stage's
+        pick)."""
+        picks: list = [None] * len(reads)
+        codes_all, read_off, seeded = self.seed_batch(reads)
+        n_cand, c_read, c_strand, c_chrom, c_tbase, c_nseg, segs = seeded
+        if n_cand == 0:
+            return picks
+        rows = self.chain_batch(seeded)
+        msb = rows.shape[1] - 3
+        scores = np.ascontiguousarray(rows[:, msb + 1:msb + 3]).view(
+            np.float32)[:, 0]
+        qs, qe, ts, te, _cov = segs
+        best = [0.0] * len(reads)
+        for ci in range(n_cand):
+            ri, score = int(c_read[ci]), float(scores[ci])
+            if c_nseg[ci] == 0 or not score > best[ri]:
+                continue
+            path = []
+            at = int(rows[ci, msb])
+            while at >= 0:
+                path.append(at)
+                at = int(rows[ci, at])
+            chain: List[Segment] = []
+            prev_q = prev_t = -1
+            tbase = int(c_tbase[ci])
+            for s in reversed(path):
+                trim = max(prev_q - int(qs[ci, s]), prev_t - int(ts[ci, s]),
+                           0)
+                q0, t0 = int(qs[ci, s]) + trim, int(ts[ci, s]) + trim
+                if q0 >= qe[ci, s] or t0 >= te[ci, s]:
+                    continue
+                chain.append(Segment(q0, int(qe[ci, s]), t0 + tbase,
+                                     int(te[ci, s]) + tbase))
+                prev_q, prev_t = int(qe[ci, s]), int(te[ci, s])
+            if not chain:
+                continue
+            best[ri] = score
+            codes = codes_all[read_off[ri]:read_off[ri + 1]]
+            picks[ri] = (chain, "+", int(c_chrom[ci]), codes) \
+                if c_strand[ci] == 0 else \
+                (chain, "-", int(c_chrom[ci]), revcomp_codes(codes))
+        return picks
+
+    def _fill_picks(self, reads, picks, min_len: Optional[float]):
+        """`_fill` of every picked read, its chain's length at least
+        min_len when given: (pendings, the batch's DP problems)."""
+        problems: List[DpProblem] = []
+        pendings: List[_Pending] = []
+        for (name, seq), picked in zip(reads, picks):
+            if picked is None:
+                continue
+            chain, strand, ci, q_codes = picked
+            if min_len is not None and \
+                    float(sum(s.length for s in chain)) < min_len:
+                continue
+            pend = self._fill(name, seq, strand, q_codes, chain, ci,
+                              problems)
+            if pend is not None:
+                pendings.append(pend)
+        return pendings, problems
+
     def map_batch(self, reads: Sequence[Tuple[str, str]]
                   ) -> List[PslRecord]:
-        """Align a batch of (name, seq) reads on the device route;
-        primary alignments only, byte-identical to the host path."""
+        """Align a batch of (name, seq) reads on cfg's route; primary
+        alignments only, byte-identical to the host route."""
+        chain, dp = align_backends(self.cfg)
+        if chain == "device":
+            return self._map_staged(reads)
+        if dp == "numpy":
+            return super().map_batch(reads)
+        pendings, problems = self._fill_picks(
+            reads, self._native_picks(reads), cfg_min_len(self.cfg))
+        results = self._solve_dp(problems)
+        modes = [p.mode for p in problems]
+        return [rec for rec in (self._emit(pend, results, modes)
+                                for pend in pendings) if rec is not None]
+
+    def map_batch_runs(self, reads: Sequence[Tuple[str, str]]):
+        """map_batch_runs by cfg's route: the chain pick of the chain
+        backend, the DP problem list through the DP backend (the host
+        class's fused C call for 'native' with 'numpy')."""
+        chain, dp = align_backends(self.cfg)
+        if chain == "device":
+            picks = self._device_picks(reads)
+        elif dp == "numpy":
+            return super().map_batch_runs(reads)
+        else:
+            picks = self._native_picks(reads)
+        pendings, problems = self._fill_picks(reads, picks, None)
+        results = self._solve_dp(problems)
+        modes = [p.mode for p in problems]
+        return [(pend.name, pend.strand, pend.q_codes,
+                 self._build_runs(pend, results, modes))
+                for pend in pendings]
+
+    def _map_staged(self, reads: Sequence[Tuple[str, str]]
+                    ) -> List[PslRecord]:
+        """The staged route: C seed, chain kernel, C fill, the DP of
+        cfg.dp_backend (`dp_batch`), C emit."""
         codes_all, read_off, seeded = self.seed_batch(reads)
         if seeded[0] == 0:
             return []
@@ -552,8 +783,7 @@ class TorchSpliceAligner(SpliceAligner):
         strand, chrom, oriented, run_off, runs, probs = self.fill_batch(
             codes_all, read_off, seeded, rows)
         cfg = self.cfg
-        meta, ks, buf, on_host = solve_dp_fused(
-            probs, oriented, read_off, self._genome(), cfg)
+        meta, ks, buf, on_host = self.dp_batch(probs, oriented, read_off)
         stats, blk_off, bs, bq, bt, cs_off, cs_raw = \
             native_stage_emit_batch(
                 oriented, read_off, self.index.seq_codes, strand, run_off,

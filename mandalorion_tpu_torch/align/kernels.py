@@ -1,9 +1,15 @@
 """Batched affine-gap DP with its traceback walk, on PyTorch.
 
-Counterpart of mandalorion_tpu/align/kernels.py for the staged device
-route: `solve_dp_fused` takes the DP problem descriptors that the native
-fill stage returns and gives back exactly what the native emit stage
-reads (meta, ks, buf, on_host). Two implementations of one function:
+Counterpart of mandalorion_tpu/align/kernels.py. Two entries:
+
+- `solve_dp_fused` takes the DP problem descriptors that the native fill
+  stage returns and gives back exactly what the native emit stage reads
+  (meta, ks, buf, on_host): the staged routes' entry;
+- `solve_dp_device` takes a list of `DpProblem`s and returns their
+  `DpResult`s (the reference's `solve_dp_pallas` and `solve_dp_rowscan`):
+  the entry of the routes that chain on the host.
+
+Both end in `dp_fused`, one function with two implementations:
 
 - `dp_fused_plain`: the reference's row math (`row_step`, `_row0`,
   `_dp_kernel`'s best-cell and zdrop tracking, `_traceback_walk`) in
@@ -13,7 +19,10 @@ reads (meta, ks, buf, on_host). Two implementations of one function:
   `dp_layout`.
 
 `dp_fused` dispatches on the tensors' device: CPU tensors take the plain
-version, CUDA tensors the kernel (never the other way round).
+version, CUDA tensors the kernel (never the other way round). Only
+`rowscan=True`, which `--dp_backend rowscan` alone asks for, runs the
+plain version on a CUDA device: the reference's pure-JAX row scan
+(`_rowscan_fn`) as PyTorch ops on the card.
 
 The queries are read from the batch's `oriented` codes and the targets
 from the genome tensor that stays resident on the device, using the
@@ -25,11 +34,13 @@ host solver, exactly as in the reference.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from mandalorion_tpu_torch.align.extend import (
+    DpProblem, DpResult, solve_dp_native)
 from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch import _build
 from mandalorion_tpu_torch.parallel.mesh import fetch_global, pipeline_mesh
@@ -376,7 +387,7 @@ def _shared_need(nq, nt):
 def dp_fused(genome: torch.Tensor, oriented: torch.Tensor,
              q_lo: torch.Tensor, t_lo: torch.Tensor, nq: torch.Tensor,
              nt: torch.Tensor, mode: torch.Tensor, cfg: AlignConfig,
-             steps: int) -> Tensors:
+             steps: int, rowscan: bool = False) -> Tensors:
     """DP fill + start-cell pick + traceback walk for n problems.
 
     Problem p aligns query oriented[q_lo:q_lo+nq] against target
@@ -388,10 +399,11 @@ def dp_fused(genome: torch.Tensor, oriented: torch.Tensor,
     Returns meta (n,4) int32 [best_i, best_j, best score, final H],
     ks (n,) int32 and buf (n, steps) int8 (reverse-order step codes
     1 M / 2 I / 3 D, zero past ks). CPU tensors run `dp_fused_plain`,
-    CUDA tensors the csrc/dp.cu kernel."""
+    CUDA tensors the csrc/dp.cu kernel; with rowscan=True every device
+    runs `dp_fused_plain`."""
     nq_hi, nt_hi = _check_dp_args(genome, oriented, q_lo, t_lo, nq, nt,
                                   mode, steps)
-    if genome.device.type == "cpu":
+    if rowscan or genome.device.type == "cpu":
         return dp_fused_plain(genome, oriented, q_lo, t_lo, nq, nt, mode,
                               cfg, steps)
     return dp_launch(genome, oriented, q_lo, t_lo, nq, nt, mode,
@@ -466,7 +478,7 @@ def dp_chunks(probs, read_off: np.ndarray, device: torch.device,
 
 
 def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
-                   genome, cfg: AlignConfig):
+                   genome, cfg: AlignConfig, rowscan: bool = False):
     """Solve the staged route's DP descriptors (stage_fill_batch_c's
     (prob_read, mode, q0, t0, nq, nt)) on genome's device.
 
@@ -475,7 +487,8 @@ def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
     arrays. Returns host arrays (meta (n,4) int32, ks (n,) int32,
     buf (n,S) int8, on_host (n,) uint8), the reference `solve_dp_fused`'s
     contract: rows with on_host=1 are left zero for the emit stage to
-    solve.
+    solve. rowscan=True runs `dp_fused_plain` on the device in place of
+    the kernel (`--dp_backend rowscan`).
 
     Under a pipeline mesh the device-eligible problems shard in
     contiguous blocks over the mesh; each of this process's shards runs
@@ -495,7 +508,8 @@ def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
         dev = genome.device
         oriented_t = torch.from_numpy(oriented).to(dev)
         for chunk, desc, steps in dp_chunks(probs, read_off, dev):
-            m, k, b = dp_fused(genome, oriented_t, *desc, cfg, steps)
+            m, k, b = dp_fused(genome, oriented_t, *desc, cfg, steps,
+                               rowscan)
             meta[chunk] = m.cpu().numpy()
             ks[chunk] = k.cpu().numpy()
             buf[chunk, :steps] = b.cpu().numpy()
@@ -518,7 +532,7 @@ def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
             for chunk, desc, steps in dp_chunks(probs, read_off, dev, sub):
                 at = torch.from_numpy(np.searchsorted(sub, chunk)).to(dev)
                 mm, kk, bb = dp_fused(codes, oriented_on[dev], *desc, cfg,
-                                      steps)
+                                      steps, rowscan)
                 m[at] = mm.to(m.dtype)
                 k[at] = kk.to(k.dtype)
                 b[at, :steps] = bb.to(b.dtype)
@@ -528,3 +542,90 @@ def solve_dp_fused(probs, oriented: np.ndarray, read_off: np.ndarray,
     ks[idx] = g_ks[:len(idx)]
     buf[idx] = g_buf[:len(idx)]
     return meta, ks, buf, (~ok).astype(np.uint8)
+
+
+def merge_steps(steps: np.ndarray) -> List[Tuple[str, int, int]]:
+    """A walk's reverse-order step codes (1 M, 2 I, 3 D) as a DpResult's
+    merged (op, dq, dt) runs, first op first: the reference's
+    `_merge_steps`. `steps` holds exactly the walk's ks codes."""
+    codes = np.asarray(steps, np.int64)[::-1]
+    if len(codes) == 0:
+        return []
+    starts = np.concatenate([[0], np.flatnonzero(codes[1:] != codes[:-1])
+                             + 1])
+    lens = np.diff(np.append(starts, len(codes)))
+    out = []
+    for c, n in zip(codes[starts].tolist(), lens.tolist()):
+        op = "MID"[c - 1]
+        out.append((op, n if op != "D" else 0, n if op != "I" else 0))
+    return out
+
+
+def problem_batch(problems: Sequence[DpProblem]):
+    """The device-eligible problems (`device_eligible`) of a DpProblem
+    list as one batch of `solve_dp_fused` descriptors, a problem a
+    "read": (their indices, descriptors (read, mode, q0, t0, nq, nt),
+    oriented (the queries concatenated), read_off, genome (the targets
+    concatenated)), the arrays numpy. Every extension goes as mode 1:
+    `_fill` has already reversed an extend_left problem's arrays, and
+    modes 1 and 2 differ only in the direction the slices are read."""
+    n = len(problems)
+    nq = np.fromiter((len(p.q) for p in problems), np.int64, n)
+    nt = np.fromiter((len(p.t) for p in problems), np.int64, n)
+    idx = np.flatnonzero(device_eligible(nq, nt))
+    read_off = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(nq[idx], out=read_off[1:])
+    t_off = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(nt[idx], out=t_off[1:])
+
+    def joined(arrays):
+        return np.ascontiguousarray(
+            np.concatenate(arrays) if arrays else np.zeros(0), np.uint8)
+
+    mode = np.array([problems[i].mode != "global" for i in idx], np.uint8)
+    probs = (np.arange(len(idx), dtype=np.int32), mode,
+             np.zeros(len(idx), np.int64), t_off[:-1], nq[idx], nt[idx])
+    return (idx, probs, joined([problems[i].q for i in idx]), read_off,
+            joined([problems[i].t for i in idx]))
+
+
+def solve_dp_device(problems: Sequence[DpProblem], cfg: AlignConfig,
+                    device, rowscan: bool = False) -> List[DpResult]:
+    """The DP problem list entry: the reference's `solve_dp_pallas` (and,
+    with rowscan=True, `solve_dp_rowscan`) on `device`.
+
+    The device-eligible problems go to `solve_dp_fused` as one batch
+    (`problem_batch`), their targets uploaded once a call as its genome
+    (once to each mesh device under a pipeline mesh, where the batch
+    shards as `solve_dp_fused` shards it and `device` is not used). The
+    others (an empty side, nq > 2048, nt > 2303) are solved by
+    `solve_dp_native`, as the reference solves them on the host. A global
+    result starts at (len q, len t), a local one at its best cell, and a
+    local problem whose best is <= 0 gives DpResult([], 0, 0)."""
+    idx, probs, oriented, read_off, targets = problem_batch(problems)
+    results: List[DpResult] = [None] * len(problems)  # type: ignore
+    host = np.setdiff1d(np.arange(len(problems)), idx)
+    for i, res in zip(host.tolist(), solve_dp_native(
+            [problems[i] for i in host], cfg)):
+        results[i] = res
+    if len(idx) == 0:
+        return results
+    mesh = pipeline_mesh()
+    if mesh is None:
+        genome = torch.from_numpy(targets).to(device)
+    else:
+        genome = {dev: torch.from_numpy(targets).to(dev)
+                  for dev in mesh.distinct_devices()}
+    meta, ks, buf, _on_host = solve_dp_fused(probs, oriented, read_off,
+                                             genome, cfg, rowscan)
+    local, nq, nt = probs[1], probs[4], probs[5]
+    for slot, i in enumerate(idx.tolist()):
+        if not local[slot]:
+            qi, tj = int(nq[slot]), int(nt[slot])
+        elif meta[slot, 2] <= 0:
+            results[i] = DpResult([], 0, 0)
+            continue
+        else:
+            qi, tj = int(meta[slot, 0]), int(meta[slot, 1])
+        results[i] = DpResult(merge_steps(buf[slot, :ks[slot]]), qi, tj)
+    return results

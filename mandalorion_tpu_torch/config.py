@@ -58,13 +58,22 @@ class AlignConfig:
     # dependent motifs, primary-only emission), not knobs
     dp_backend: str = "device"     # 'device' (align/kernels.py: the CUDA
                                    # kernel, or its plain PyTorch version
-                                   # on the CPU) | 'numpy' (host native
-                                   # C++); bit-identical
+                                   # on the CPU; the reference's
+                                   # 'pallas') | 'rowscan' (that plain
+                                   # version as PyTorch ops on the device:
+                                   # the reference's pure-JAX row scan) |
+                                   # 'numpy' (host native C++);
+                                   # bit-identical
     chain_backend: str = "device"  # 'device' (align/chain_kernel.py) |
-                                   # 'native' (host C++); same chains.
-                                   # Module A has two routes: both
-                                   # 'device' (the default), or 'native'
-                                   # with 'numpy' (the host route)
+                                   # 'native' (host C++). Module A runs
+                                   # any pair of the two: both 'device'
+                                   # is the default, 'native' with
+                                   # 'numpy' the host route (forked
+                                   # workers, no device), the other four
+                                   # run in one process on the device
+                                   # (align/aligner.py). Each pair gives
+                                   # the reference's output for the same
+                                   # pair
     emit_sam: bool = False         # also write tmp/mm2Alignments.sam
     index_cache: str = ""          # persist/reuse the genome index (.npz),
                                    # minimap2 .mmi analogue; validated

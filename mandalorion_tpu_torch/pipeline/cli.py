@@ -3,11 +3,20 @@
 
     mando-tpu-torch -p . -g ann.gtf -G genome.fa -f reads.fofn
 
-It takes the `mando-tpu` flag set plus --device. Module A runs the device
-route (chain and DP kernels on --device) by default; the host route
+It takes the `mando-tpu` flag set plus --device. Module A runs the pair
+--chain_backend {device,native} x --dp_backend {device,rowscan,numpy}
+(the reference's dp 'pallas' is 'device' here). The default, device and
+device, runs the chain and DP kernels on --device; the host route
 (native C++ in -t forked workers, a process that never touches CUDA) is
 
     mando-tpu-torch ... --chain_backend native --dp_backend numpy
+
+and every other pair runs module A in this process with the device
+parts on --device: a device chain stages each batch through the C seed,
+fill and emit stages around the chain kernel, a native chain picks each
+read's chain in C and fills its gaps in Python before the batch's DP
+problem list goes to the DP backend. 'rowscan' runs the DP kernel's
+plain PyTorch version on --device, and only when named.
 
 --consensus_backend device runs module D's graph POA through the POA
 kernels on --device. --devices N > 1 installs an N-shard mesh of --device
@@ -70,15 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-P", "--pacbio", default=False, action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--dp_backend", default="device",
-                   choices=["device", "numpy"],
+                   choices=["device", "rowscan", "numpy"],
                    help="gap-fill DP backend (bit-identical): device = "
-                        "the CUDA kernel on --device, numpy = host "
-                        "native C++ (with --chain_backend native)")
+                        "the CUDA kernel csrc/dp.cu on --device, rowscan "
+                        "= its plain PyTorch row scan on --device, numpy "
+                        "= host native C++")
     p.add_argument("--chain_backend", default="device",
                    choices=["device", "native"],
-                   help="chain DP backend: one batched kernel launch per "
-                        "read batch on --device, or the native host path "
-                        "(with --dp_backend numpy)")
+                   help="chain DP backend: device = one launch of the "
+                        "CUDA kernel csrc/chain.cu per read batch on "
+                        "--device, native = the host C++ chain a read "
+                        "(with --dp_backend numpy: the host route in -t "
+                        "forked workers)")
     p.add_argument("--consensus_engine", default="graph",
                    choices=["star", "graph"],
                    help="isoform consensus engine: star (backbone+votes, "

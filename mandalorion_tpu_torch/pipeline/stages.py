@@ -12,10 +12,12 @@ Any suffix of APDFQ re-runs from these files (the -M checkpoint system,
 SURVEY §5.4). If tmp/mm2Alignments.sam exists (external aligner interop),
 module P converts it instead of requiring module A.
 
-Routes. Module A runs `cfg.align`'s route: the staged device route
-(`TorchSpliceAligner`, chain and DP kernels on `device`) when
-chain_backend and dp_backend are both 'device', the host route (native
-C++ in forked workers) when they are 'native' and 'numpy'. Module D's
+Routes. Module A runs `cfg.align`'s route (`align_route`): the host route
+(native C++ in forked workers) when chain_backend and dp_backend are
+'native' and 'numpy'; for every other pair a `TorchSpliceAligner` in
+this process, with the chain kernel on `device` for chain 'device' and
+the DP kernel for dp 'device' (its plain version on `device` for
+'rowscan'; align/aligner.py's module docstring has the table). Module D's
 graph consensus runs the native C++ engine, or with
 `cfg.poa.backend == 'device'` the batched POA kernels on `device`
 (poa/kernels.py), in this process after the forked prepare workers have
@@ -24,8 +26,8 @@ returned.
 Mesh. Under parallel.mesh.use_mesh (the CLI's --devices N) module A's
 chain and DP dispatches, module D's POA chunks and module Q's count
 matrix shard over the mesh, in this process only: no forked worker
-issues a collective. index_backend 'sharded' under a mesh needs the
-device route.
+issues a collective. index_backend 'sharded' under a mesh needs a route
+other than the host route.
 
 Forking. One rule, `_may_fork(runs_device_code)`: workers that run host
 code only (module A's host route, P, D's prepare phase, F) may fork even
@@ -47,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from mandalorion_tpu_torch.align.aligner import (
-    SpliceAligner, TorchSpliceAligner)
+    SpliceAligner, TorchSpliceAligner, align_backends)
 from mandalorion_tpu_torch.config import PipelineConfig
 from mandalorion_tpu_torch.core.cleanpsl import clean_psl_file, discover_loci
 from mandalorion_tpu_torch.core.ends import define_start_end_sites
@@ -119,18 +121,22 @@ def _may_fork(runs_device_code: bool = False) -> bool:
     return threading.active_count() == 1
 
 
+ALIGN_ROUTES = {
+    ("device", "device"): "device",
+    ("device", "rowscan"): "device-chain/rowscan-dp",
+    ("device", "numpy"): "device-chain/host-dp",
+    ("native", "device"): "host-chain/device-dp",
+    ("native", "rowscan"): "host-chain/rowscan-dp",
+    ("native", "numpy"): "host",
+}
+
+
 def align_route(cfg) -> str:
-    """'device' or 'host' for an AlignConfig; the reference's mixed
-    routes (device chain with host DP and the reverse) are not ported."""
-    pair = (cfg.chain_backend, cfg.dp_backend)
-    if pair == ("device", "device"):
-        return "device"
-    if pair == ("native", "numpy"):
-        return "host"
-    raise NotImplementedError(
-        f"chain_backend={pair[0]!r} with dp_backend={pair[1]!r} is not "
-        f"yet ported to mandalorion_tpu_torch: use device/device or "
-        f"native/numpy")
+    """Module A's route for an AlignConfig's (chain_backend, dp_backend):
+    'host' for ('native', 'numpy'), the route that touches no device;
+    every other pair runs on the device. ValueError on a backend name the
+    port does not know."""
+    return ALIGN_ROUTES[align_backends(cfg)]
 
 
 # ------------------------------------------------------------- module A
@@ -550,14 +556,16 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
     device routes (see the module docstring) and is resolved only when
     one is selected, so a run on the host routes never touches CUDA."""
     cfg = cfg or PipelineConfig()
-    route = align_route(cfg.align)
-    if route == "host" and cfg.align.index_backend == "sharded" \
+    on_device = align_route(cfg.align) != "host"
+    if not on_device and cfg.align.index_backend == "sharded" \
             and pipeline_mesh() is not None:
-        raise ValueError("index_backend='sharded' under a mesh runs on the "
-                         "device route (chain_backend and dp_backend "
-                         "'device'); the host route's forked workers hold "
-                         "no mesh")
-    if route == "device" or cfg.poa.backend == "device":
+        raise ValueError("index_backend='sharded' under a mesh needs a "
+                         "device route: chain_backend 'device' with any "
+                         "dp_backend, or dp_backend 'device' or 'rowscan' "
+                         "with any chain_backend. The host route "
+                         "(chain_backend 'native', dp_backend 'numpy') "
+                         "runs in forked workers, which hold no mesh")
+    if on_device or cfg.poa.backend == "device":
         device = resolve_device(device)
     paths = Paths(out_path)
     os.makedirs(paths.tmp, exist_ok=True)
@@ -568,14 +576,14 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
         with timer.stage("index_build"):
             genome = fastx_to_dict(genome_path)
             aligner = (TorchSpliceAligner(genome, cfg.align, device=device)
-                       if route == "device"
-                       else SpliceAligner(genome, cfg.align))
+                       if on_device else SpliceAligner(genome, cfg.align))
     if "A" in cfg.modules:
         with timer.stage("A_alignment"):
-            # device route: one process, whose read batch then grows to
+            # a route on the device: one process (a CUDA context does not
+            # survive fork), whose read batch then grows to
             # max(batch_reads, n_reads / 3); host route: cfg.threads
             # forked workers
-            module_a(paths, cfg.replace(threads=1) if route == "device"
+            module_a(paths, cfg.replace(threads=1) if on_device
                      else cfg, fasta_files, genome_path, aligner)
     p_writer = None
     try:

@@ -5,7 +5,11 @@ On the CPU both device stages run their kernels' plain PyTorch versions;
 the three native C stages are the port's own library. The harness follows
 tests/test_stage_native.py: several chromosomes, the seed stage's
 capacity retry, junk and empty reads, and an aligner built from another
-one's index.
+one's index. The host aligner is the reference's, on its default (host)
+pair; the port aligner runs the pair of the port's default configuration
+(`DEVICE_ROUTE`: chain and DP on the device), since a TorchSpliceAligner
+runs the route its configuration names. The mixed pairs are in
+tests/test_torch_routes.py.
 """
 
 import os
@@ -20,9 +24,12 @@ from mandalorion_tpu.native import load_native
 from mandalorion_tpu_torch.align import chain_kernel, kernels
 from mandalorion_tpu_torch.align.aligner import (
     SpliceAligner as PortSpliceAligner, TorchSpliceAligner)
+from mandalorion_tpu_torch.config import AlignConfig as PortAlignConfig
 
 pytestmark = pytest.mark.skipif(load_native() is None,
                                 reason="native library unavailable")
+
+DEVICE_ROUTE = PortAlignConfig()
 
 
 def _dataset(tmp_path, seed=0, n_genes=3, reads_per_gene=20):
@@ -47,7 +54,7 @@ def _same(port, host, reads):
 @pytest.mark.parametrize("seed", [0, 2])
 def test_map_batch_matches_host(tmp_path, seed):
     genome, reads = _dataset(tmp_path, seed=seed)
-    port = TorchSpliceAligner(genome, AlignConfig(), device="cpu")
+    port = TorchSpliceAligner(genome, DEVICE_ROUTE, device="cpu")
     assert len(_same(port, SpliceAligner(genome, AlignConfig()), reads)) \
         > len(reads) // 2
 
@@ -55,7 +62,8 @@ def test_map_batch_matches_host(tmp_path, seed):
 def test_unalignable_and_empty_batches(tmp_path):
     genome, reads = _dataset(tmp_path, seed=1, n_genes=2, reads_per_gene=5)
     host = SpliceAligner(genome, AlignConfig())
-    port = TorchSpliceAligner.from_aligner(host, device="cpu")
+    port = TorchSpliceAligner.from_aligner(host, device="cpu",
+                                           cfg=DEVICE_ROUTE)
     junk = [("junk1", "ACGT" * 8), ("junk2", "TTTTGGGGCCCCAAAA")]
     _same(port, host, reads + junk)
     assert port.map_batch(junk) == []
@@ -84,7 +92,8 @@ def test_multichromosome(tmp_path):
             reads.append((f"c{ci}r{k}", r))
         genomes[f"chr{ci + 1}"] = genome
     host = SpliceAligner(genomes, AlignConfig())
-    _same(TorchSpliceAligner.from_aligner(host, device="cpu"), host, reads)
+    _same(TorchSpliceAligner.from_aligner(host, device="cpu",
+                                          cfg=DEVICE_ROUTE), host, reads)
 
 
 def test_seed_capacity_retry_and_cross_chrom_candidates():
@@ -106,7 +115,8 @@ def test_seed_capacity_retry_and_cross_chrom_candidates():
         r, _ = synthdata.mutate_read(core[500:3500], rng, 0.02)
         reads.append((f"r{k}", r))
     host = SpliceAligner(genomes, AlignConfig())
-    port = TorchSpliceAligner.from_aligner(host, device="cpu")
+    port = TorchSpliceAligner.from_aligner(host, device="cpu",
+                                           cfg=DEVICE_ROUTE)
     _codes, _off, seeded = port.seed_batch(reads)
     assert seeded[0] > max(64, 2 * len(reads))
     _same(port, host, reads)
@@ -115,12 +125,15 @@ def test_seed_capacity_retry_and_cross_chrom_candidates():
 def test_from_aligner_shares_the_index(tmp_path):
     genome, reads = _dataset(tmp_path, seed=3, n_genes=2, reads_per_gene=8)
     host = SpliceAligner(genome, AlignConfig())
-    port = TorchSpliceAligner.from_aligner(host, device="cpu")
+    assert TorchSpliceAligner.from_aligner(host, device="cpu").cfg \
+        is host.cfg
+    port = TorchSpliceAligner.from_aligner(host, device="cpu",
+                                           cfg=DEVICE_ROUTE)
     assert port.index is host.index and port.max_occ == host.max_occ
     # on the CPU the resident genome tensor is the index's own buffer
     assert port.genome_codes.data_ptr() == \
         host.index.seq_codes.ctypes.data
-    assert port.cfg is host.cfg
+    assert port.cfg is DEVICE_ROUTE
     twin = port.host_twin()
     assert type(twin) is PortSpliceAligner and twin.index is host.index
     _same(port, host, reads)
@@ -131,7 +144,7 @@ def test_map_batch_runs_both_device_stages(tmp_path, monkeypatch):
     """map_batch goes through chain_rows and dp_fused, once each per
     batch (on the CPU, their plain versions)."""
     genome, reads = _dataset(tmp_path, seed=4, n_genes=2, reads_per_gene=6)
-    port = TorchSpliceAligner(genome, AlignConfig(), device="cpu")
+    port = TorchSpliceAligner(genome, DEVICE_ROUTE, device="cpu")
     calls = []
     for mod, name in ((chain_kernel, "chain_rows_plain"),
                       (kernels, "dp_fused_plain")):

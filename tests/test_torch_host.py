@@ -85,13 +85,41 @@ def test_host_route_cli_never_resolves_a_device(tmp_path, dataset,
     assert _artifacts(tmp_path / "port") == _artifacts(tmp_path / "ref")
 
 
-def test_mixed_align_routes_are_refused():
-    for pair in (("device", "numpy"), ("native", "device")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            stages.align_route(AlignConfig(chain_backend=pair[0],
-                                           dp_backend=pair[1]))
-    assert stages.align_route(AlignConfig()) == "device"
-    assert stages.align_route(AlignConfig(**HOST_ROUTE)) == "host"
+@pytest.mark.parametrize("chain,dp,route", [
+    ("device", "device", "device"),
+    ("device", "rowscan", "device-chain/rowscan-dp"),
+    ("device", "numpy", "device-chain/host-dp"),
+    ("native", "device", "host-chain/device-dp"),
+    ("native", "rowscan", "host-chain/rowscan-dp"),
+    ("native", "numpy", "host"),
+    ("native", "bogus", None),
+    ("bogus", "device", None)])
+def test_align_route_of_every_pair(chain, dp, route):
+    """Every pair of the reference's chain x dp backends has a route (the
+    port's 'device' DP is the reference's 'pallas'); only the pair
+    ('native', 'numpy') is the host route. A name neither package knows
+    raises."""
+    cfg = AlignConfig(chain_backend=chain, dp_backend=dp)
+    if route is None:
+        with pytest.raises(ValueError, match="bogus"):
+            stages.align_route(cfg)
+    else:
+        assert stages.align_route(cfg) == route
+
+
+def test_cli_takes_every_pair():
+    from mandalorion_tpu_torch.config import config_from_args
+    parser = cli.build_parser()
+    for chain in ("device", "native"):
+        for dp in ("device", "rowscan", "numpy"):
+            cfg = config_from_args(parser.parse_args(
+                ["--chain_backend", chain, "--dp_backend", dp]))
+            assert (cfg.align.chain_backend, cfg.align.dp_backend) == \
+                (chain, dp)
+    assert stages.align_route(config_from_args(
+        parser.parse_args([])).align) == "device"
+    with pytest.raises(SystemExit):
+        parser.parse_args(["--dp_backend", "pallas"])
 
 
 def test_build_index_arrays_equal(dataset):
