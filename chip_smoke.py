@@ -117,7 +117,25 @@ line is printed only when every phase passed:
    chain kernel exactly when the chain is 'device', the DP kernel exactly
    when the DP is 'device', and the POA kernels always; stage seconds
    beside turn 0's and peak device memory are printed.
-7. one JSON line with every kernel, the nvidia-smi line, then the result
+7. trace (the stage profiler hook, MANDO_TPU_PROFILE), after the mixed
+   routes: slice-20k in this process as the turns, by steps and by
+   records, each with MANDO_TPU_PROFILE set to a directory of its own, so
+   that every stage runs under torch.profiler with the card's activity.
+   The six artifacts must equal the host route's; every stage must have
+   its trace, read by tools/trace_breakdown.py; each stage's trace must
+   name each hand kernel (dp_fused_kernel, chain_rows_kernel,
+   poa_fwd_kernel, poa_walk_kernel, poa_sweep_kernel) as often as its
+   launch counter moved in that stage, and a stage that launched one
+   must show a measured busy time; dp, chain, forward and step walk must
+   appear in the step run, the record walk in the record run; the
+   traced ms of the forward and of the walk must lie within 10% of the
+   CUDA-event sums of the same run. Printed: the kernel names kineto
+   recorded, and for each stage its timing.tsv seconds beside turn 0's,
+   the traced window, the card's busy ms and idle share, the five device
+   operations that take the most time, the three longest idle gaps with
+   the host operation under each, and the trace's bytes; for each run the
+   idle share over its stages.
+8. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -133,9 +151,11 @@ is held by the CPU tests (tests/test_torch_*.py).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import os
 import signal
@@ -161,6 +181,7 @@ from mandalorion_tpu_torch.native import native_poa_consensus
 from mandalorion_tpu_torch.parallel import dist as pdist
 from mandalorion_tpu_torch.parallel import mesh as pmesh
 from mandalorion_tpu_torch.pipeline import cli as port_cli
+from mandalorion_tpu_torch.pipeline import observe
 from mandalorion_tpu_torch.poa import kernels as poa
 from mandalorion_tpu_torch.poa.graph import PoaParams
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
@@ -1759,6 +1780,128 @@ def mixed_phase(tmp, inputs, ref, turn0, aligner, reads, n_reads,
     log(f"mixed: phase (a)-(b) passed, {time.time() - t_phase:.1f}s")
 
 
+# ---------------------------------------------------------------- trace
+
+# phase 7's runs: the walk, the MANDO_TPU_PROFILE root under the scratch
+# directory, and the kernels the run's traces must show
+TRACE_RUNS = (("steps", "trace_steps",
+               ("dp_fused", "chain_rows", "poa_fwd", "poa_walk")),
+              ("sweep", "trace_records", ("poa_sweep",)))
+# the traced kernel ms of the forward and the walk against RunObserver's
+# CUDA-event sums of the same run
+TRACE_MS_TOLERANCE = 0.10
+
+
+def load_trace_reader():
+    """tools/trace_breakdown.py, the reader of a MANDO_TPU_PROFILE
+    directory."""
+    path = os.path.join(ROOT, "tools", "trace_breakdown.py")
+    spec = importlib.util.spec_from_file_location("trace_breakdown", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def launches_by_stage(out: dict):
+    """While entered, every StageTimer stage also records its launches by
+    kernel into out[stage], so that each stage's trace can be held to its
+    own counts."""
+    plain_stage = observe.StageTimer.stage
+
+    @contextlib.contextmanager
+    def stage(self, name, count=None):
+        before = {n: counter.count for n, *_r, counter in KERNELS}
+        try:
+            with plain_stage(self, name, count):
+                yield
+        finally:
+            out[name] = {n: counter.count - before[n]
+                         for n, *_r, counter in KERNELS}
+
+    observe.StageTimer.stage = stage
+    try:
+        yield out
+    finally:
+        observe.StageTimer.stage = plain_stage
+
+
+def trace_phase(tmp, inputs, ref, turn0) -> None:
+    """Phase 7: the slice by steps and by records with MANDO_TPU_PROFILE
+    set, each stage's trace read by tools/trace_breakdown.py."""
+    t_phase = time.time()
+    tb = load_trace_reader()
+    t0s = turn0["stages"]
+    for walk, label, want in TRACE_RUNS:
+        root = os.path.join(tmp, label)
+        by_stage: dict = {}
+        os.environ["MANDO_TPU_PROFILE"] = root
+        try:
+            with launches_by_stage(by_stage):
+                run_ = run_device_route(os.path.join(tmp, f"{label}_out"),
+                                        inputs, walk, keep_largest=False)
+        finally:
+            os.environ.pop("MANDO_TPU_PROFILE", None)
+        got = artifact_bytes(os.path.join(tmp, f"{label}_out"))
+        for name in ARTIFACTS:
+            if got[name] != ref[name]:
+                raise AssertionError(f"{name} of the traced {walk} run "
+                                     f"differs from the host run")
+        check_route_launches(run_)
+        launched = sorted(s for s, counts in by_stage.items()
+                          if any(counts.values()))
+        stages = tb.run_breakdown(root, expect_device=launched)
+        if set(stages) != set(run_["stages"]):
+            raise AssertionError(f"{label}: traces of {sorted(stages)}, "
+                                 f"stages {sorted(run_['stages'])}")
+        kineto = collections.Counter(
+            e["name"] for stage in stages
+            for e in tb.load_events(tb.stage_trace(os.path.join(root, stage)))
+            if e.get("cat") == "kernel")
+        log(f"trace ({label}): kernels kineto recorded: " + "; ".join(
+            f"{name[:90]} x{n}" for name, n in kineto.most_common()))
+        for stage, b in stages.items():
+            counts = {n: c for n, c in by_stage.get(stage, {}).items() if c}
+            traced = {n: c for n, (_ms, c) in tb.kernel_totals(
+                {stage: b}, [f"{n}_kernel" for n, *_r in KERNELS]).items()
+                if c}
+            if traced != {f"{n}_kernel": c for n, c in counts.items()}:
+                raise AssertionError(f"{label} {stage}: the trace shows "
+                                     f"{traced}, the counters {counts}")
+            log(f"trace ({label}) {stage}: timing.tsv "
+                f"{run_['stages'][stage]:.2f} s (turn 0: {t0s[stage]:.2f}); "
+                f"launches {counts}; {tb.format_stage(stage, b)}")
+        totals = tb.kernel_totals(stages, [f"{n}_kernel" for n in want])
+        for n in want:
+            if totals[f"{n}_kernel"][1] != run_["launches"][n] \
+                    or run_["launches"][n] <= 0:
+                raise AssertionError(f"{label}: {n}_kernel traced "
+                                     f"{totals[f'{n}_kernel'][1]} times, "
+                                     f"launched {run_['launches'][n]}")
+        walk_key = "poa_sweep" if walk == "sweep" else "poa_walk"
+        for n in ("poa_fwd", walk_key):
+            traced_ms = tb.kernel_totals(stages, [f"{n}_kernel"])[
+                f"{n}_kernel"][0]
+            event_ms = run_["kernel_ms"][n]
+            log(f"trace ({label}): {n}_kernel {traced_ms:.3f} ms in the "
+                f"trace, {event_ms:.3f} ms by CUDA events")
+            if abs(traced_ms - event_ms) > TRACE_MS_TOLERANCE * event_ms:
+                raise AssertionError(f"{label}: {n}_kernel {traced_ms:.3f} "
+                                     f"ms traced against {event_ms:.3f} ms "
+                                     f"by CUDA events")
+        if tb.run_idle_share(stages) is None:
+            raise AssertionError(f"{label}: no device event in any trace")
+        busy = sum(b["busy_ms"] or 0.0 for b in stages.values())
+        window = sum(b["window_ms"] for b in stages.values())
+        log(f"trace ({label}): idle share over the run's stages "
+            f"{100 * tb.run_idle_share(stages):.2f}% (busy {busy:.3f} ms of "
+            f"{window:.3f} ms traced); "
+            f"{sum(b['bytes'] for b in stages.values())} trace bytes; "
+            f"launches {run_['launches']}; wall {run_['seconds']:.1f}s "
+            f"(turn 0: {turn0['seconds']:.1f}s)")
+    log(f"trace: phase passed, {time.time() - t_phase:.1f}s")
+
+
 def chain_only(device) -> None:
     """--chain-only: the chain's sets and the first read batch's chain
     figures, nothing else; the 512-segment set comes from CHAIN_SEED, so
@@ -1904,6 +2047,7 @@ def main(argv) -> None:
         mixed_phase(tmp, inputs, ref, by_steps, aligner, reads[:batch],
                     n_reads, device)
         del aligner, reads
+        trace_phase(tmp, inputs, ref, by_steps)
 
     for banned in ("jax", "mandalorion_tpu"):
         if banned in sys.modules:

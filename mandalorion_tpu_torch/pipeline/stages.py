@@ -565,12 +565,14 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
                          "with any chain_backend. The host route "
                          "(chain_backend 'native', dp_backend 'numpy') "
                          "runs in forked workers, which hold no mesh")
-    if on_device or cfg.poa.backend == "device":
+    uses_device = on_device or cfg.poa.backend == "device"
+    if uses_device:
         device = resolve_device(device)
     paths = Paths(out_path)
     os.makedirs(paths.tmp, exist_ok=True)
     _log(paths, cfg)
-    timer = StageTimer(paths.t("timing.tsv"))
+    timer = StageTimer(paths.t("timing.tsv"),
+                       device=device if uses_device else None)
     aligner: Optional[SpliceAligner] = None
     if "A" in cfg.modules or "F" in cfg.modules:
         with timer.stage("index_build"):

@@ -132,6 +132,15 @@ def test_chip_smoke_imports_only_the_port():
     assert n_calls >= 2
 
 
+def test_trace_reader_imports_neither_jax_nor_the_jax_package():
+    """tools/trace_breakdown.py, which chip_smoke.py loads on the card,
+    imports neither jax nor mandalorion_tpu, lazy imports included."""
+    with open(os.path.join(ROOT, "tools", "trace_breakdown.py")) as fh:
+        tops = _imported_tops(ast.parse(fh.read()))
+    assert "json" in tops
+    assert not tops & FORBIDDEN, tops
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
