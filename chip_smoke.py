@@ -135,7 +135,24 @@ line is printed only when every phase passed:
    operations that take the most time, the three longest idle gaps with
    the host operation under each, and the trace's bytes; for each run the
    idle share over its stages.
-8. one JSON line with every kernel, the nvidia-smi line, then the result
+8. no native (MANDO_TPU_NO_NATIVE), after the mixed routes and before
+   the trace phase: (a) the segment-list chain entry
+   `chain_batch_segments` (the reference's `chain_batch_jax`) on
+   hand-made candidates of 400 to 700 segments (the entry keeps the
+   longest 512) and on the first read batch's candidates from the numpy
+   seeding's segment lists (`segment_candidates`): the packed rows
+   through the kernel and the route against the plain version, exactly,
+   timed as in phase 3, and the entry's chains and float32 scores on
+   the card against the entry on the CPU; (b) `align_graph_batch` on
+   case (a)'s Python-held graphs, two rounds, the card's paths against
+   the CPU's; (c) slice-20k's default device route (`--consensus_backend
+   auto`) through `run_pipeline` in a child process with
+   MANDO_TPU_NO_NATIVE=1 (the switch is read once a process): the six
+   artifacts must equal the host route's, the child must never map a
+   native library, and its counters must show chain and dp, the forward
+   and the step walk once a chunk of module D's `PoaGraph` rounds, and
+   no record walk; stage seconds beside turn 0's and the host route's.
+9. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -174,6 +191,7 @@ from mandalorion_tpu_torch import (AlignConfig, _build, fastx_to_dict,
 from mandalorion_tpu_torch.align import chain_kernel, kernels
 from mandalorion_tpu_torch.align.aligner import (
     TorchSpliceAligner, sharded_seed_hits)
+from mandalorion_tpu_torch.align.chain import Segment
 from mandalorion_tpu_torch.align.encode import (
     encode, minimizers, revcomp_codes)
 from mandalorion_tpu_torch.align.extend import DpProblem, solve_dp_native
@@ -183,7 +201,7 @@ from mandalorion_tpu_torch.parallel import mesh as pmesh
 from mandalorion_tpu_torch.pipeline import cli as port_cli
 from mandalorion_tpu_torch.pipeline import observe
 from mandalorion_tpu_torch.poa import kernels as poa
-from mandalorion_tpu_torch.poa.graph import PoaParams
+from mandalorion_tpu_torch.poa.graph import PoaGraph, PoaParams
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
 from mandalorion_tpu_torch.utils.simulate import make_dataset
 
@@ -354,8 +372,8 @@ def stop_descendants() -> list:
     return names
 
 
-def run(cmd, **kw) -> str:
-    env = dict(os.environ, PYTHONPATH=ROOT)
+def run(cmd, env=None, **kw) -> str:
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, **kw)
     if proc.returncode != 0:
@@ -1038,7 +1056,8 @@ def check_sweep_cuts(device) -> int:
 
 def check_poa_cases(rng, device):
     """Cases (a) to (f) of the module docstring. Returns the measured
-    largest differences (forward, walk, sweep) over every chunk compared."""
+    largest differences (forward, walk, sweep) over every chunk compared,
+    and case (a)'s (sets, adaptive params)."""
     errs = []
     cfg = POA_SETS
     sets = []
@@ -1174,7 +1193,8 @@ def check_poa_cases(rng, device):
         "records records steps: " + " ".join(f"{ms:.3f}" for ms in turns)
         + " ms")
     errs.append((0, 0, check_sweep_cuts(device)))
-    return tuple(max(e[i] for e in errs) for i in range(3))
+    return tuple(max(e[i] for e in errs) for i in range(3)), (sets,
+                                                              adaptive)
 
 
 def consensus_by_records(sets, params, device, rounds=()):
@@ -1780,6 +1800,196 @@ def mixed_phase(tmp, inputs, ref, turn0, aligner, reads, n_reads,
     log(f"mixed: phase (a)-(b) passed, {time.time() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------------ no native
+
+# phase 8's child: the slice's default device route through run_pipeline,
+# in a process of its own with MANDO_TPU_NO_NATIVE=1 (the switch is read
+# once a process, and this one has loaded the library). It prints one
+# JSON line: the launch counters, set to 0 just before the run; module
+# D's rounds and chunks; the native libraries mapped into it; the stage
+# seconds; wall seconds, kernel ms by CUDA events and peak device memory.
+NO_NATIVE_CHILD = r"""
+import json, os, sys, time
+import torch
+from mandalorion_tpu_torch.align import chain_kernel, kernels
+from mandalorion_tpu_torch.pipeline import cli
+from mandalorion_tpu_torch.pipeline.stages import run_pipeline
+from mandalorion_tpu_torch.poa import kernels as poa
+args = cli.build_parser().parse_args(sys.argv[1:])
+counters = dict(dp_fused=kernels.DP_LAUNCHES,
+                chain_rows=chain_kernel.CHAIN_LAUNCHES,
+                poa_fwd=poa.POA_FWD_LAUNCHES, poa_walk=poa.POA_WALK_LAUNCHES,
+                poa_sweep=poa.POA_SWEEP_LAUNCHES)
+poa.OBSERVER = obs = poa.RunObserver(time_kernels=True)
+for counter in counters.values():
+    counter.count = 0
+t0 = time.time()
+run_pipeline(args.path, args.genome_sequence, args.genome_annotation,
+             args.Consensus_reads, cli.config_from_args(args),
+             device=args.device)
+torch.cuda.synchronize()
+seconds = time.time() - t0
+with open(os.path.join(args.path, "tmp", "timing.tsv")) as fh:
+    stages = {k: float(v) for k, v in (
+        line.rstrip("\n").split("\t")[:2] for line in fh
+        if line.strip() and not line.startswith("stage"))}
+with open("/proc/self/maps") as fh:
+    mapped = sorted({line.split()[-1] for line in fh
+                     if "libmando_native" in line})
+print(json.dumps(dict(
+    launches={name: c.count for name, c in counters.items()},
+    rounds=obs.rounds, chunks=len(obs.chunks),
+    problems=max((c[0] for c in obs.chunks), default=0), mapped=mapped,
+    stages=stages, seconds=seconds, kernel_ms=obs.kernel_ms(),
+    fill_s=obs.fill_s, apply_s=obs.apply_s,
+    peak=torch.cuda.max_memory_allocated())))
+"""
+NO_NATIVE_TIMEOUT_S = 900
+# the hand-made long candidates of phase 8 (a): segments a candidate
+LONG_SEGMENT_COUNTS = (400, 450, 480, 500, 510, 511, 512, 512, 530, 700)
+
+
+def long_segment_lists(rng) -> list:
+    """Segment lists of LONG_SEGMENT_COUNTS collinear multi-anchor
+    segments (indel and intron gaps, overlaps; cov below the span), each
+    with up to 20 single-anchor segments off the diagonal, unsorted: the
+    entry prepares them (the two over 512 keep their longest 512)."""
+    lists = []
+    for n in LONG_SEGMENT_COUNTS:
+        segs, q, t = [], 0, 0
+        for _ in range(n):
+            ln = int(rng.integers(15, 60))
+            q = max(q + int(rng.integers(-10, 15)), 0)
+            t = max(t + int(rng.choice([-10, 0, 3, 40, 300, 5000, 60000])),
+                    0)
+            segs.append(Segment(q, q + ln, t, t + ln, n_anchors=3,
+                                cov=int(rng.integers(15, ln + 1))))
+            q, t = q + ln, t + ln
+        for _ in range(int(rng.integers(0, 21))):
+            nq = int(rng.integers(0, q))
+            tt = nq + int(rng.choice([0, 10_000, 900_000]))
+            segs.append(Segment(nq, nq + 15, tt, tt + 15))
+        rng.shuffle(segs)
+        lists.append(segs)
+    return lists
+
+
+def same_chains(got, want, what) -> None:
+    if [([vars(s) for s in c], score) for c, score in got] != \
+            [([vars(s) for s in c], score) for c, score in want]:
+        raise AssertionError(f"chain_batch_segments on the card != on the "
+                             f"CPU: {what}")
+
+
+def check_segment_entry(aligner, reads, device) -> None:
+    """Phase 8 (a): the segment-list entry on hand-made long candidates
+    and on the first batch's candidates from the numpy seeding's segment
+    lists (`segment_candidates`): its packed rows through the kernel and
+    the route against the plain version on the card, exactly
+    (`time_chain`, with its three figures and bounds), and its chains and
+    float32 scores on the card against the whole entry on the CPU; then
+    the entry's call from the segment lists to the chains, host clock."""
+    kw = dict(min_intron=aligner.cfg.min_intron,
+              max_intron=aligner.cfg.max_intron)
+    t0 = time.time()
+    _cands, first = aligner.segment_candidates(
+        [encode(seq) for _name, seq in reads])
+    seed_s = time.time() - t0
+    sets = {"hand-made long candidates":
+            long_segment_lists(np.random.default_rng(CHAIN_SEED + 1)),
+            f"the first batch's candidates ({len(reads)} reads, seeded "
+            f"an orientation at a time in {seed_s:.1f} s)": first}
+    for what, lists in sets.items():
+        _prepped, planes, n_seg = chain_kernel.pack_segment_lists(
+            lists, max_intron=kw["max_intron"])
+        time_chain(f"segment lists, {what}", planes, n_seg, kw, device, 5)
+        got = chain_kernel.chain_batch_segments(lists, **kw, device=device)
+        same_chains(got, chain_kernel.chain_batch_segments(
+            lists, **kw, device=torch.device("cpu")), what)
+        entry_ms = host_ms(lambda: chain_kernel.chain_batch_segments(
+            lists, **kw, device=device), 3)
+        log(f"no native (a): chain_batch_segments, {what}: {len(lists)} "
+            f"lists, {int(n_seg.sum())} segments after prepare_segments "
+            f"(longest {int(n_seg.max())}), {sum(len(c) > 0 for c, _s in got)}"
+            f" chains; card == CPU (chains and float32 scores); the entry's "
+            f"call {entry_ms:.3f} ms (host clock, lists to chains)")
+
+
+def check_graph_batch(sets, params, device, rounds: int = 2) -> None:
+    """Phase 8 (b): `align_graph_batch` on the card against the same call
+    on the CPU on case (a)'s Python-held graphs, round by round (the
+    graphs grown by the card's paths): paths identical."""
+    graphs = [PoaGraph(s[0]) for s in sets]
+    for k in range(1, rounds + 1):
+        queries = [s[k] for s in sets]
+        t0 = time.time()
+        got = poa.align_graph_batch(graphs, queries, params, device)
+        card_s = time.time() - t0
+        t0 = time.time()
+        want = poa.align_graph_batch(graphs, queries, params, "cpu")
+        if got != want:
+            raise AssertionError(f"align_graph_batch round {k}: the card's "
+                                 f"paths differ from the CPU's")
+        log(f"no native (b): align_graph_batch, case (a) round {k}: "
+            f"{len(graphs)} graphs of {min(len(g.base) for g in graphs)}.."
+            f"{max(len(g.base) for g in graphs)} nodes, paths on the card "
+            f"== CPU ({card_s:.2f} s on the card, {time.time() - t0:.2f} s "
+            f"on the CPU, host clock)")
+        for g, q, path in zip(graphs, queries, got):
+            g.apply_path(q, path)
+
+
+def no_native_phase(tmp, inputs, ref, ref_t, turn0, aligner, reads,
+                    n_reads, case_a, device) -> None:
+    """Phase 8, (a) to (c): the segment-list entry, the Python-held
+    graphs' entry, then the slice's default device route under
+    MANDO_TPU_NO_NATIVE=1 in a child process."""
+    t_phase = time.time()
+    check_segment_entry(aligner, reads, device)
+    check_graph_batch(*case_a, device)
+    out_dir = os.path.join(tmp, "no-native")
+    t0 = time.time()
+    out = run([sys.executable, "-c", NO_NATIVE_CHILD, "-p", out_dir, *inputs,
+               "--device", "cuda"], env=dict(MANDO_TPU_NO_NATIVE="1"),
+              timeout=NO_NATIVE_TIMEOUT_S)
+    wall = time.time() - t0
+    res = json.loads(out.strip().splitlines()[-1])
+    got = artifact_bytes(out_dir)
+    for name in ARTIFACTS:
+        if got[name] != ref[name]:
+            raise AssertionError(f"{name} under MANDO_TPU_NO_NATIVE differs "
+                                 f"from the host run")
+    launches, chunks = res["launches"], res["chunks"]
+    if min(launches["chain_rows"], launches["dp_fused"], chunks) <= 0 or \
+            launches["poa_fwd"] != chunks or launches["poa_walk"] != chunks \
+            or launches["poa_sweep"] != 0:
+        raise AssertionError(f"no native: launches {launches} for {chunks} "
+                             f"chunks")
+    if res["mapped"]:
+        raise AssertionError(f"no native: the child mapped {res['mapped']}")
+    stages, t0s = res["stages"], turn0["stages"]
+    log(f"no native (c) slice, default device route under "
+        f"MANDO_TPU_NO_NATIVE=1 in a child process: {len(ARTIFACTS)} "
+        f"artifacts byte-identical to the host run; no native library "
+        f"mapped; launches {launches}; module D {res['rounds']} rounds, "
+        f"{chunks} chunks (at most {res['problems']} problems), forward "
+        f"{res['kernel_ms']['poa_fwd']:.1f} ms, step walk "
+        f"{res['kernel_ms']['poa_walk']:.1f} ms (CUDA events), graph_arrays "
+        f"{res['fill_s']:.2f} s, apply_path {res['apply_s']:.2f} s (host "
+        f"clock); APDFQ stages {n_reads / sum(stages.values()):.1f} reads/s "
+        f"(turn 0: {n_reads / sum(t0s.values()):.1f}, host route: "
+        f"{n_reads / sum(ref_t.values()):.1f}), module A "
+        f"{n_reads / stages['A_alignment']:.1f} reads/s (turn 0: "
+        f"{n_reads / t0s['A_alignment']:.1f}); peak device memory "
+        f"{res['peak']} bytes (turn 0: {turn0['peak']}); run "
+        f"{res['seconds']:.1f} s, child {wall:.1f} s (turn 0: "
+        f"{turn0['seconds']:.1f} s)")
+    log("no native (c) stage seconds, switched | turn 0 | host route: "
+        + ", ".join(f"{k} {stages[k]:.2f} | {t0s[k]:.2f} | {ref_t[k]:.2f}"
+                    for k in ref_t))
+    log(f"no native: phase (a)-(c) passed, {time.time() - t_phase:.1f}s")
+
+
 # ---------------------------------------------------------------- trace
 
 # phase 7's runs: the walk, the MANDO_TPU_PROFILE root under the scratch
@@ -1956,8 +2166,8 @@ def main(argv) -> None:
                             check_dp_layouts(device)),
             "chain_rows": check_chain_sets(rng, device)}
     t0 = time.time()
-    errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"] = check_poa_cases(
-        rng, device)
+    (errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"]), case_a = \
+        check_poa_cases(rng, device)
     log(f"poa: cases (a)-(f) {time.time() - t0:.1f}s")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2046,6 +2256,8 @@ def main(argv) -> None:
                    stats.largest, device)
         mixed_phase(tmp, inputs, ref, by_steps, aligner, reads[:batch],
                     n_reads, device)
+        no_native_phase(tmp, inputs, ref, ref_t, by_steps, aligner,
+                        reads[:batch], n_reads, case_a, device)
         del aligner, reads
         trace_phase(tmp, inputs, ref, by_steps)
 

@@ -27,6 +27,16 @@ reference's `SpliceAligner.map_batch` does:
 - chain 'native' with DP 'numpy': the host class's fused C call a read
   (on the replicated index).
 
+Under MANDO_TPU_NO_NATIVE (no native library loaded) every route runs the
+reference's Python staging on the numpy twins: seeding an orientation at
+a time (`_minimizers_numpy`, `GenomeIndex.lookup`'s numpy branch,
+`collapse_anchors`), `_fill`, the DP problem list through the DP backend
+(`solve_dp_numpy` for 'numpy'), `_emit` (`_runs_to_psl_numpy`). Chain
+'device' then runs every candidate of the batch through
+`chain_kernel.chain_batch_segments` (the reference's
+`_chain_batch_device`); chain 'native' runs `chain_segments` a
+candidate on the host. The kernels stay on `device`.
+
 The index's uint8 sequence codes are uploaded to the device once and stay
 there. Every route gives byte-identical records.
 
@@ -48,9 +58,10 @@ import torch
 
 from mandalorion_tpu_torch.align.chain import (
     Segment, chain_segments, collapse_anchors)
-from mandalorion_tpu_torch.align.chain_kernel import chain_batch_rows
+from mandalorion_tpu_torch.align.chain_kernel import (
+    chain_batch_rows, chain_batch_segments)
 from mandalorion_tpu_torch.align.encode import (
-    encode, minimizers, revcomp_codes)
+    decode, encode, minimizers, revcomp_codes)
 from mandalorion_tpu_torch.align.extend import (
     DpProblem, DpResult, solve_dp_native, splice_fill)
 from mandalorion_tpu_torch.align.index import (
@@ -60,13 +71,13 @@ from mandalorion_tpu_torch.align.kernels import (
 from mandalorion_tpu_torch.config import AlignConfig
 from mandalorion_tpu_torch.io.psl import PslRecord
 from mandalorion_tpu_torch.native import (
-    native_align_read, native_align_read_runs, native_emit_psl,
+    load_native, native_align_read, native_align_read_runs, native_emit_psl,
     native_seed_chain2, native_stage_emit_batch, native_stage_fill_batch,
     native_stage_seed_anchors, native_stage_seed_batch)
 from mandalorion_tpu_torch.parallel.dist import (
     IndexShards, place_index_shards, shard_index_arrays)
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
-from mandalorion_tpu_torch.runtime import resolve_device
+from mandalorion_tpu_torch.runtime import require_native, resolve_device
 
 
 CHAIN_BACKENDS = ("device", "native")
@@ -100,7 +111,8 @@ class _Pending:
 
 class SpliceAligner:
     """Genome-indexed splice aligner on the host (native C++ seeding,
-    chaining and DP). Thread the same instance through batches."""
+    chaining and DP; their numpy twins and the Python staging under
+    MANDO_TPU_NO_NATIVE). Thread the same instance through batches."""
 
     def __init__(self, genome: Dict[str, str],
                  cfg: Optional[AlignConfig] = None):
@@ -122,6 +134,98 @@ class SpliceAligner:
         itself; the routes are byte-identical, so this changes no
         output. No index rebuild."""
         return self
+
+    # ------------------------------------------------------------ seeding
+
+    def _chain_both(self, codes: np.ndarray):
+        """Best chain over both read orientations (forward wins score
+        ties): (chain, strand, chrom_idx, oriented query codes), or None
+        when neither orientation chains. The native seed + chain in one
+        call, or under MANDO_TPU_NO_NATIVE the numpy seeding
+        (`_orientation_segments`) chained on the host (`_host_pick`)."""
+        cfg = self.cfg
+        idx = self.index
+        res = native_seed_chain2(
+            codes, cfg.kmer, cfg.window, self.max_occ, 100,
+            idx.sorted_hashes, idx.bucket_lo, idx.bucket_bits,
+            idx.sorted_positions, idx.chrom_offsets, cfg.min_intron,
+            cfg.max_intron)
+        if res is None:
+            return self._host_pick(codes, *self._orientation_segments([codes]))
+        q0, qe, t0, te, _score, ci, strand = res
+        if strand < 0 or len(q0) == 0:
+            return None
+        chain = [Segment(int(a), int(b), int(c), int(d))
+                 for a, b, c, d in zip(q0, qe, t0, te)]
+        if strand == 0:
+            return chain, "+", ci, codes
+        return chain, "-", ci, revcomp_codes(codes)
+
+    def _anchors(self, code_list: List[np.ndarray]):
+        """Every orientation's anchors, `GenomeIndex.lookup` an
+        orientation (the reference's seeding without its native library):
+        orientation 2r + s (s = 0 forward, 1 reverse) of read r holds
+        anchors off[2r+s]:off[2r+s+1] of (anchor_q, anchor_g). Returns
+        (off, anchor_q, anchor_g)."""
+        cfg = self.cfg
+        q_parts, g_parts = [], []
+        for codes in code_list:
+            for qc in (codes, revcomp_codes(codes)):
+                pos, hashes = minimizers(qc, cfg.kmer, cfg.window)
+                qidx, gpos = self.index.lookup(hashes, self.max_occ)
+                q_parts.append(pos[qidx])
+                g_parts.append(gpos)
+        off = np.zeros(len(q_parts) + 1, np.int64)
+        np.cumsum([len(q) for q in q_parts], out=off[1:])
+        empty = np.zeros(0, np.int64)
+        return (off, np.concatenate(q_parts) if q_parts else empty,
+                np.concatenate(g_parts) if g_parts else empty)
+
+    def _orientation_segments(self, code_list: List[np.ndarray]
+                              ) -> List[List[Tuple[int, List[Segment]]]]:
+        """Each orientation's candidates from its anchors (`_anchors`):
+        entry 2r + s is read r's orientation s as [(chrom, segment list)],
+        chromosomes ascending, anchors collapsed in Python."""
+        off, anchor_q, anchor_g = self._anchors(code_list)
+        out = []
+        for o in range(len(off) - 1):
+            q = anchor_q[off[o]:off[o + 1]]
+            g = anchor_g[off[o]:off[o + 1]]
+            ci, _local = self.index.position_to_chrom(g)
+            out.append([(int(c), collapse_anchors(q[ci == c], g[ci == c],
+                                                  self.cfg.kmer))
+                        for c in np.unique(ci)])
+        return out
+
+    def _chain_anchors(self, cands: List[Tuple[int, List[Segment]]]
+                       ) -> Tuple[Optional[List[Segment]], float, int]:
+        """Best chain of one orientation's [(chrom, segment list)] by the
+        host chain, a strictly higher score winning: (chain, score,
+        chrom_idx)."""
+        cfg = self.cfg
+        best_chain, best_score, best_ci = None, 0.0, -1
+        for c, segs in cands:
+            chain, score = chain_segments(
+                segs, min_intron=cfg.min_intron, max_intron=cfg.max_intron)
+            if chain and score > best_score:
+                best_chain, best_score, best_ci = chain, score, c
+        return best_chain, best_score, best_ci
+
+    def _host_pick(self, codes: np.ndarray, fwd, rev):
+        """`_chain_both`'s pick from the two orientations' candidates
+        (`_orientation_segments`), chained on the host, forward winning
+        score ties."""
+        chain_f, score_f, ci_f = self._chain_anchors(fwd)
+        chain_r, score_r, ci_r = self._chain_anchors(rev)
+        if chain_f is None and chain_r is None:
+            return None
+        if score_f >= score_r:
+            return chain_f, "+", ci_f, codes
+        return chain_r, "-", ci_r, revcomp_codes(codes)
+
+    def _native_picks(self, reads: Sequence[Tuple[str, str]]) -> list:
+        """Each read's chain pick in `_chain_both`'s form."""
+        return [self._chain_both(encode(seq)) for _name, seq in reads]
 
     # ------------------------------------------------------------- filling
 
@@ -223,6 +327,44 @@ class SpliceAligner:
                    g[last.t_end:last.t_end + rt].copy(), "extend_right")
         return _Pending(name, seq, strand, q_codes, chrom_idx, ops, dp_slots)
 
+    def _fill_picks(self, reads, picks, min_len: Optional[float]):
+        """`_fill` of every picked read, its chain's length at least
+        min_len when given: (pendings, the batch's DP problems)."""
+        problems: List[DpProblem] = []
+        pendings: List[_Pending] = []
+        for (name, seq), picked in zip(reads, picks):
+            if picked is None:
+                continue
+            chain, strand, ci, q_codes = picked
+            if min_len is not None and \
+                    float(sum(s.length for s in chain)) < min_len:
+                continue
+            pend = self._fill(name, seq, strand, q_codes, chain, ci,
+                              problems)
+            if pend is not None:
+                pendings.append(pend)
+        return pendings, problems
+
+    def _map_picks(self, reads, picks) -> List[PslRecord]:
+        """Records of the picked reads: `_fill_picks` (min chain length),
+        the batch's DP problem list through `_solve_dp`, `_emit`."""
+        pendings, problems = self._fill_picks(reads, picks,
+                                              cfg_min_len(self.cfg))
+        results = self._solve_dp(problems)
+        modes = [p.mode for p in problems]
+        return [rec for rec in (self._emit(pend, results, modes)
+                                for pend in pendings) if rec is not None]
+
+    def _runs_of_picks(self, reads, picks) -> list:
+        """map_batch_runs' tuples of the picked reads (no min chain
+        length), the DP problem list through `_solve_dp`."""
+        pendings, problems = self._fill_picks(reads, picks, None)
+        results = self._solve_dp(problems)
+        modes = [p.mode for p in problems]
+        return [(pend.name, pend.strand, pend.q_codes,
+                 self._build_runs(pend, results, modes))
+                for pend in pendings]
+
     # ------------------------------------------------------------ emission
 
     def _emit(self, pend: _Pending, results: List[DpResult],
@@ -274,11 +416,14 @@ class SpliceAligner:
         op_id = self._OP_ID
         arr = np.array([(op_id[op], q0, t0, ln)
                         for op, q0, t0, ln in runs], np.int64)
-        stats, bs, bq, bt, cs_str = native_emit_psl(
+        res = native_emit_psl(
             pend.q_codes, self.index.seq_codes,
             arr[:, 0].astype(np.int8), np.ascontiguousarray(arr[:, 1]),
             np.ascontiguousarray(arr[:, 2]),
             np.ascontiguousarray(arr[:, 3]))
+        if res is None:
+            return self._runs_to_psl_numpy(pend, runs)
+        stats, bs, bq, bt, cs_str = res
         return self._psl_record(
             pend, stats, bs.tolist(), bq.tolist(), bt.tolist(), cs_str)
 
@@ -309,13 +454,79 @@ class SpliceAligner:
             accuracy=matches / denom if denom else 0.0,
             cs=cs_str, sequence=pend.seq)
 
+    def _runs_to_psl_numpy(self, pend: _Pending,
+                           runs: List[Tuple[str, int, int, int]]
+                           ) -> Optional[PslRecord]:
+        """`_runs_to_psl` in numpy (the native emit's twin)."""
+        g = self.index.seq_codes
+        q = pend.q_codes
+        matches = mismatches = 0
+        n_bases = nI = I = nD = D = 0
+        cs_parts: List[str] = []
+        block_sizes: List[int] = []
+        q_starts: List[int] = []
+        t_starts: List[int] = []
+
+        def open_block(q0: int, t0: int, ln: int) -> None:
+            if block_sizes and (t_starts[-1] + block_sizes[-1] == t0
+                                and q_starts[-1] + block_sizes[-1] == q0):
+                block_sizes[-1] += ln
+            else:
+                block_sizes.append(ln)
+                q_starts.append(q0)
+                t_starts.append(t0)
+
+        for op, q0, t0, ln in runs:
+            if op == "M":
+                open_block(q0, t0, ln)
+                eq = q[q0:q0 + ln] == g[t0:t0 + ln]
+                n_eq = int(eq.sum())
+                matches += n_eq
+                mismatches += ln - n_eq
+                # emit cs: decode whole run once, slice strings per segment
+                q_str = decode(q[q0:q0 + ln])
+                if n_eq == ln:
+                    cs_parts.append("=" + q_str)
+                else:
+                    g_low = decode(g[t0:t0 + ln]).lower()
+                    q_low = q_str.lower()
+                    edges = np.flatnonzero(np.diff(eq.astype(np.int8))) + 1
+                    bounds = [0] + edges.tolist() + [ln]
+                    for b0, b1 in zip(bounds, bounds[1:]):
+                        if eq[b0]:
+                            cs_parts.append("=" + q_str[b0:b1])
+                        else:
+                            for o in range(b0, b1):
+                                cs_parts.append("*" + g_low[o] + q_low[o])
+            elif op == "I":
+                nI += 1
+                I += ln
+                cs_parts.append("+" + decode(q[q0:q0 + ln]).lower())
+            elif op == "D":
+                nD += 1
+                D += ln
+                cs_parts.append("-" + decode(g[t0:t0 + ln]).lower())
+            elif op == "N":
+                n_bases += ln
+                cs_parts.append(
+                    "~" + decode(g[t0:t0 + 2]).lower() + str(ln)
+                    + decode(g[t0 + ln - 2:t0 + ln]).lower())
+
+        return self._psl_record(
+            pend, (matches, mismatches, nI, I, nD, D, n_bases),
+            block_sizes, q_starts, t_starts, "".join(cs_parts))
+
     # -------------------------------------------------------------- public
 
     def map_batch(self, reads: Sequence[Tuple[str, str]]
                   ) -> List[PslRecord]:
         """Align a batch of (name, seq) reads; primary alignments only.
         One fused C call per read does seed+chain, gap fill (splice-point
-        search + affine DP), run assembly and extended-PSL emission."""
+        search + affine DP), run assembly and extended-PSL emission; under
+        MANDO_TPU_NO_NATIVE the Python staging (`_native_picks`,
+        `_map_picks`) on the numpy twins."""
+        if load_native() is None:
+            return self._map_picks(reads, self._native_picks(reads))
         out: List[PslRecord] = []
         for name, seq in reads:
             codes = encode(seq)
@@ -346,7 +557,10 @@ class SpliceAligner:
     def map_batch_runs(self, reads: Sequence[Tuple[str, str]]):
         """Like map_batch but returns raw (name, strand, q_codes, runs)
         tuples, the op-level interface used by the star consensus
-        (poa/star.py); one fused C call per read."""
+        (poa/star.py); one fused C call per read, or under
+        MANDO_TPU_NO_NATIVE the Python staging."""
+        if load_native() is None:
+            return self._runs_of_picks(reads, self._native_picks(reads))
         out = []
         for name, seq in reads:
             codes = encode(seq)
@@ -523,67 +737,17 @@ class TorchSpliceAligner(SpliceAligner):
                     self.index.seq_codes).to(dev)
         return self._genome_on
 
-    def _chain_both(self, codes: np.ndarray):
-        """Best chain over both read orientations by the native seed +
-        chain (forward wins score ties): (chain, strand, chrom_idx,
-        oriented query codes), or None when neither orientation chains."""
-        cfg = self.cfg
-        idx = self.index
-        q0, qe, t0, te, _score, ci, strand = native_seed_chain2(
-            codes, cfg.kmer, cfg.window, self.max_occ, 100,
-            idx.sorted_hashes, idx.bucket_lo, idx.bucket_bits,
-            idx.sorted_positions, idx.chrom_offsets, cfg.min_intron,
-            cfg.max_intron)
-        if strand < 0 or len(q0) == 0:
-            return None
-        chain = [Segment(int(a), int(b), int(c), int(d))
-                 for a, b, c, d in zip(q0, qe, t0, te)]
-        if strand == 0:
-            return chain, "+", ci, codes
-        return chain, "-", ci, revcomp_codes(codes)
-
-    def _chain_for(self, qpos: np.ndarray, gpos: np.ndarray
-                   ) -> Tuple[Optional[List[Segment]], float, int]:
-        """Best chain of one read orientation from its anchors (query
-        position, global genome position), by the host chain a chromosome,
-        chromosomes ascending, a strictly higher score winning: (chain,
-        score, chrom_idx). The reference's `_chain_for` under a
-        hash-sharded index, from the lookup's hits."""
-        cfg = self.cfg
-        best_chain, best_score, best_ci = None, 0.0, -1
-        if len(gpos) == 0:
-            return best_chain, best_score, best_ci
-        ci, _local = self.index.position_to_chrom(gpos)
-        for c in np.unique(ci):
-            segs = collapse_anchors(qpos[ci == c], gpos[ci == c], cfg.kmer)
-            chain, score = chain_segments(
-                segs, min_intron=cfg.min_intron, max_intron=cfg.max_intron)
-            if chain and score > best_score:
-                best_chain, best_score, best_ci = chain, score, int(c)
-        return best_chain, best_score, best_ci
-
     def _native_picks(self, reads: Sequence[Tuple[str, str]]) -> list:
         """Each read's chain pick in `_chain_both`'s form with the native
         chain. With a hash-sharded index every orientation of the batch
-        is looked up over the mesh at once (`_sharded_anchors`) and
-        chained on the host (`_chain_for`), forward winning ties."""
-        code_list = [encode(seq) for _name, seq in reads]
+        is looked up over the mesh at once (`_anchors`) and chained on
+        the host (`_host_pick`)."""
         if self._sharded is None:
-            return [self._chain_both(codes) for codes in code_list]
-        off, anchor_q, anchor_g = self._sharded_anchors(code_list)
-        picks = []
-        for r, codes in enumerate(code_list):
-            (cf, sf, cif), (cr, sr, cir) = (
-                self._chain_for(anchor_q[off[o]:off[o + 1]],
-                                anchor_g[off[o]:off[o + 1]])
-                for o in (2 * r, 2 * r + 1))
-            if cf is None and cr is None:
-                picks.append(None)
-            elif sf >= sr:
-                picks.append((cf, "+", cif, codes))
-            else:
-                picks.append((cr, "-", cir, revcomp_codes(codes)))
-        return picks
+            return super()._native_picks(reads)
+        code_list = [encode(seq) for _name, seq in reads]
+        per_o = self._orientation_segments(code_list)
+        return [self._host_pick(codes, per_o[2 * r], per_o[2 * r + 1])
+                for r, codes in enumerate(code_list)]
 
     def _sharded_anchors(self, code_list: List[np.ndarray]):
         """Every orientation's anchors through the hash-sharded index, in
@@ -607,6 +771,44 @@ class TorchSpliceAligner(SpliceAligner):
                     else np.zeros(0, np.int64))[qidx]
         return np.searchsorted(qidx, q_off), anchor_q, gpos
 
+    def _anchors(self, code_list: List[np.ndarray]):
+        """The host class's anchors, through `_sharded_anchors` with a
+        hash-sharded index."""
+        if self._sharded is not None:
+            return self._sharded_anchors(code_list)
+        return super()._anchors(code_list)
+
+    def segment_candidates(self, code_list: List[np.ndarray]):
+        """The candidates of the reads' codes without the C seed stage
+        (`_orientation_segments`), in order read, strand, chromosome.
+        Returns ([(orientation 2r + s, chrom)], [segment list])."""
+        per_o = self._orientation_segments(code_list)
+        cands = [(o, c) for o, lst in enumerate(per_o) for c, _segs in lst]
+        return cands, [segs for lst in per_o for _c, segs in lst]
+
+    def _segment_picks(self, reads: Sequence[Tuple[str, str]]) -> list:
+        """Each read's chain pick in `_chain_both`'s form with the device
+        chain from segment lists (the reference's `_chain_batch_device`):
+        `segment_candidates`, all chained in one `chain_batch_segments`
+        call; per read the first candidate of strictly highest score with
+        a chain."""
+        cfg = self.cfg
+        code_list = [encode(seq) for _name, seq in reads]
+        cands, seg_lists = self.segment_candidates(code_list)
+        chains = chain_batch_segments(
+            seg_lists, min_intron=cfg.min_intron, max_intron=cfg.max_intron,
+            device=self.device)
+        picks: list = [None] * len(reads)
+        best = [0.0] * len(reads)
+        for (o, c), (chain, score) in zip(cands, chains):
+            r = o // 2
+            if chain and score > best[r]:
+                best[r] = score
+                codes = code_list[r]
+                picks[r] = (chain, "+", c, codes) if o % 2 == 0 else \
+                    (chain, "-", c, revcomp_codes(codes))
+        return picks
+
     def seed_batch(self, reads: Sequence[Tuple[str, str]]):
         """C seed stage: (codes_all, read_off, seeded), seeded being
         native_stage_seed_batch's (n_cand, read, strand, chrom, tbase,
@@ -614,6 +816,7 @@ class TorchSpliceAligner(SpliceAligner):
         over the mesh (`sharded_seed_hits`) and the C stage collapses,
         prepares and packs its anchors (native_stage_seed_anchors): the
         same tuple."""
+        require_native("the C seed stage (TorchSpliceAligner.seed_batch)")
         cfg = self.cfg
         code_list = [encode(seq) for _name, seq in reads]
         read_off = np.zeros(len(reads) + 1, np.int64)
@@ -644,6 +847,7 @@ class TorchSpliceAligner(SpliceAligner):
     def fill_batch(self, codes_all, read_off, seeded, rows):
         """C fill stage: (strand, chrom, oriented, run_off, runs, probs),
         probs being the DP descriptors (read, mode, q0, t0, nq, nt)."""
+        require_native("the C fill stage (TorchSpliceAligner.fill_batch)")
         cfg = self.cfg
         n_cand, c_read, c_strand, c_chrom, c_tbase, c_nseg, segs = seeded
         return native_stage_fill_batch(
@@ -720,39 +924,18 @@ class TorchSpliceAligner(SpliceAligner):
                 (chain, "-", int(c_chrom[ci]), revcomp_codes(codes))
         return picks
 
-    def _fill_picks(self, reads, picks, min_len: Optional[float]):
-        """`_fill` of every picked read, its chain's length at least
-        min_len when given: (pendings, the batch's DP problems)."""
-        problems: List[DpProblem] = []
-        pendings: List[_Pending] = []
-        for (name, seq), picked in zip(reads, picks):
-            if picked is None:
-                continue
-            chain, strand, ci, q_codes = picked
-            if min_len is not None and \
-                    float(sum(s.length for s in chain)) < min_len:
-                continue
-            pend = self._fill(name, seq, strand, q_codes, chain, ci,
-                              problems)
-            if pend is not None:
-                pendings.append(pend)
-        return pendings, problems
-
     def map_batch(self, reads: Sequence[Tuple[str, str]]
                   ) -> List[PslRecord]:
         """Align a batch of (name, seq) reads on cfg's route; primary
         alignments only, byte-identical to the host route."""
         chain, dp = align_backends(self.cfg)
         if chain == "device":
+            if load_native() is None:
+                return self._map_picks(reads, self._segment_picks(reads))
             return self._map_staged(reads)
         if dp == "numpy":
             return super().map_batch(reads)
-        pendings, problems = self._fill_picks(
-            reads, self._native_picks(reads), cfg_min_len(self.cfg))
-        results = self._solve_dp(problems)
-        modes = [p.mode for p in problems]
-        return [rec for rec in (self._emit(pend, results, modes)
-                                for pend in pendings) if rec is not None]
+        return self._map_picks(reads, self._native_picks(reads))
 
     def map_batch_runs(self, reads: Sequence[Tuple[str, str]]):
         """map_batch_runs by cfg's route: the chain pick of the chain
@@ -760,17 +943,13 @@ class TorchSpliceAligner(SpliceAligner):
         class's fused C call for 'native' with 'numpy')."""
         chain, dp = align_backends(self.cfg)
         if chain == "device":
-            picks = self._device_picks(reads)
+            picks = (self._segment_picks(reads) if load_native() is None
+                     else self._device_picks(reads))
         elif dp == "numpy":
             return super().map_batch_runs(reads)
         else:
             picks = self._native_picks(reads)
-        pendings, problems = self._fill_picks(reads, picks, None)
-        results = self._solve_dp(problems)
-        modes = [p.mode for p in problems]
-        return [(pend.name, pend.strand, pend.q_codes,
-                 self._build_runs(pend, results, modes))
-                for pend in pendings]
+        return self._runs_of_picks(reads, picks)
 
     def _map_staged(self, reads: Sequence[Tuple[str, str]]
                     ) -> List[PslRecord]:

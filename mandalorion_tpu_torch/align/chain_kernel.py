@@ -1,10 +1,13 @@
 """Batched collinear chain DP on PyTorch.
 
-Counterpart of mandalorion_tpu/align/chain_kernel.py for the staged
-device route: `chain_batch_rows` takes the native seed stage's
-pre-packed candidate rows and returns the packed int16 rows (parent
-table, best index, float32 score bits) that the native fill stage reads.
-Two implementations of one function:
+Counterpart of mandalorion_tpu/align/chain_kernel.py. Two entries:
+`chain_batch_rows` (the staged device route) takes the native seed
+stage's pre-packed candidate rows and returns the packed int16 rows
+(parent table, best index, float32 score bits) that the native fill
+stage reads; `chain_batch_segments` (the route without the native
+library, MANDO_TPU_NO_NATIVE) takes candidates as segment lists, packs
+them, runs `chain_batch_rows` and returns each candidate's chain and
+score. Two implementations of one function under both:
 
 - `chain_rows_plain`: `_chain_fn`'s scan in plain PyTorch, batched over
   candidates with a loop over segment index i;
@@ -19,12 +22,13 @@ multiply-add) and the intron cost uses the frexp exponent.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mandalorion_tpu_torch import _build
+from mandalorion_tpu_torch.align.chain import Segment, prepare_segments
 from mandalorion_tpu_torch.parallel.mesh import fetch_global, pipeline_mesh
 from mandalorion_tpu_torch.runtime import LaunchCounter
 
@@ -253,3 +257,80 @@ def _route_rows(planes, n_seg: np.ndarray, lo: int, hi: int, msb: int,
         return chain_rows(*dev[:5 * plane].view(5, n, msb).unbind(0),
                           dev[5 * plane:5 * plane + n], **kw,
                           order=dev[5 * plane + n:])
+
+
+def pack_segment_lists(per_candidate: Sequence[List[Segment]], *,
+                       max_intron: int):
+    """Candidates' segment lists as `chain_batch_rows` takes them, the
+    reference's `chain_batch_jax` packing: each list prepared as
+    `chain_segments` prepares it (`prepare_segments`: over MAX_SEG
+    segments keeps the longest MAX_SEG), its target offsets normalised by
+    its smallest t_start, zero padding to segment_lanes(longest) lanes.
+    Returns (prepared lists, (qs, qe, ts, te, cov) (n, msb) int32, n_seg
+    (n,) int32)."""
+    prepped = [prepare_segments(segs, max_intron, MAX_SEG) if segs else []
+               for segs in per_candidate]
+    n = len(prepped)
+    n_seg = np.array([len(segs) for segs in prepped], np.int32)
+    msb = segment_lanes(int(n_seg.max()) if n else 0)
+    planes = np.zeros((5, n, msb), np.int32)
+    for b, segs in enumerate(prepped):
+        if segs:
+            cols = np.array([(s.q_start, s.q_end, s.t_start, s.t_end,
+                              s.score_len) for s in segs], np.int64).T
+            cols[2:4] -= cols[2].min()
+            planes[:, b, :len(segs)] = cols
+    return prepped, tuple(planes), n_seg
+
+
+def chains_from_rows(prepped: Sequence[List[Segment]], rows: np.ndarray
+                     ) -> List[Tuple[List[Segment], float]]:
+    """Each candidate's (chain, float32 score) from its packed row: the
+    parent table traced back from the best lane, overlaps trimmed in the
+    reference's order (`_unpack_chain` and the loop after it); ([], 0.0)
+    for an empty list."""
+    msb = rows.shape[1] - 3
+    best = rows[:, msb].astype(np.int64)
+    scores = np.ascontiguousarray(rows[:, msb + 1:msb + 3]).view(
+        np.float32)[:, 0]
+    out: List[Tuple[List[Segment], float]] = []
+    for b, segs in enumerate(prepped):
+        if not segs:
+            out.append(([], 0.0))
+            continue
+        path = []
+        at = int(best[b])
+        while at >= 0:
+            path.append(at)
+            at = int(rows[b, at])
+        chain: List[Segment] = []
+        prev_q = prev_t = -1
+        for idx in reversed(path):
+            s = segs[idx]
+            trim = max(prev_q - s.q_start, prev_t - s.t_start, 0)
+            q0, t0 = s.q_start + trim, s.t_start + trim
+            if q0 >= s.q_end or t0 >= s.t_end:
+                continue
+            chain.append(Segment(q0, s.q_end, t0, s.t_end))
+            prev_q, prev_t = s.q_end, s.t_end
+        out.append((chain, float(scores[b])))
+    return out
+
+
+def chain_batch_segments(per_candidate: Sequence[List[Segment]], *,
+                         min_intron: int, max_intron: int,
+                         device: torch.device
+                         ) -> List[Tuple[List[Segment], float]]:
+    """The reference's `chain_batch_jax` on `device`: every candidate's
+    segments (one chromosome each) packed (`pack_segment_lists`), chained
+    in one `chain_batch_rows` call (the chain kernel on a CUDA device, or
+    over the mesh under one) and traced back (`chains_from_rows`).
+    Returns (chain, float32 score) a candidate."""
+    if not per_candidate:
+        return []
+    prepped, planes, n_seg = pack_segment_lists(per_candidate,
+                                                max_intron=max_intron)
+    rows = chain_batch_rows(*planes, n_seg, len(n_seg),
+                            min_intron=min_intron, max_intron=max_intron,
+                            device=device)
+    return chains_from_rows(prepped, rows)

@@ -14,7 +14,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from mandalorion_tpu_torch.align.encode import encode
+from mandalorion_tpu_torch.align.encode import encode, minimizers
 
 # per-read anchor budget (minimap2's mid-occ adaptation); MUST match the
 # native constant in native/minimizers.cpp (ANCHOR_BUDGET): `lookup` and
@@ -70,10 +70,16 @@ class GenomeIndex:
         anchor budget keeps the lowest-occurrence seeds when a read seeds
         mostly in high-copy repeats (identical semantics to the native
         build_segments path, minimizers.cpp ANCHOR_BUDGET). Uses the
-        native bucketed binary search."""
+        native bucketed binary search, or numpy's searchsorted under
+        MANDO_TPU_NO_NATIVE (the same ranges)."""
         from mandalorion_tpu_torch.native import native_lookup_ranges
-        lo, hi = native_lookup_ranges(self.sorted_hashes, self.bucket_lo,
-                                      self.bucket_bits, hashes)
+        res = native_lookup_ranges(self.sorted_hashes, self.bucket_lo,
+                                   self.bucket_bits, hashes)
+        if res is not None:
+            lo, hi = res
+        else:
+            lo = np.searchsorted(self.sorted_hashes, hashes, side="left")
+            hi = np.searchsorted(self.sorted_hashes, hashes, side="right")
         counts = hi - lo
         keep = (counts > 0) & (counts <= max_occ)
         kept_counts = counts[keep]
@@ -124,7 +130,8 @@ def build_index(genome: Dict[str, str], kmer: int = 15, window: int = 5,
     """Build the minimizer index from a chrom -> sequence dict. Chromosomes
     are processed in chunks (with k-1 overlap) to bound peak memory.
     The native library does the minimizer scan and sort on `threads`
-    threads."""
+    threads; under MANDO_TPU_NO_NATIVE `_build_index_numpy` builds the
+    same arrays in one thread."""
     from mandalorion_tpu_torch.native import native_build_index
 
     names = sorted(genome)
@@ -146,10 +153,14 @@ def build_index(genome: Dict[str, str], kmer: int = 15, window: int = 5,
     chrom_sizes = np.asarray(sizes, np.int64)
     pos_u32 = offset < (1 << 32)  # hg38-scale genomes fit uint32
     bits = _bucket_bits_for(offset)
-    sorted_hashes, sorted_positions, bucket_lo = native_build_index(
+    res = native_build_index(
         seq_codes, chrom_offsets, chrom_sizes, chrom_offsets,
         kmer, window, chunk, bits, threads or (os.cpu_count() or 1),
         pos_u32)
+    if res is None:
+        return _build_index_numpy(seq_codes, names, chrom_offsets,
+                                  chrom_sizes, kmer, window, chunk, bits)
+    sorted_hashes, sorted_positions, bucket_lo = res
     return GenomeIndex(
         kmer=kmer, window=window, seq_codes=seq_codes,
         chrom_names=names, chrom_offsets=chrom_offsets,
@@ -343,3 +354,50 @@ def cached_index(genome: Dict[str, str], kmer: int, window: int,
     if cache_path:
         save_index(idx, cache_path)
     return idx
+
+
+def _build_index_numpy(seq_codes: np.ndarray, names: List[str],
+                       chrom_offsets: np.ndarray, chrom_sizes: np.ndarray,
+                       kmer: int, window: int, chunk: int,
+                       bucket_bits: int = 16) -> GenomeIndex:
+    """Pure-numpy index build (the native builder's twin)."""
+    pos_parts: List[np.ndarray] = []
+    hash_parts: List[np.ndarray] = []
+    total = int(chrom_offsets[-1] + chrom_sizes[-1] + 1) if len(names) else 0
+    for ci in range(len(names)):
+        offset = int(chrom_offsets[ci])
+        codes = seq_codes[offset:offset + int(chrom_sizes[ci])]
+        start = 0
+        while start < len(codes):
+            stop = min(len(codes), start + chunk)
+            # context: windows touching a position reach w-1 k-mers left
+            # and w-1 k-mers (+ k-1 bases) right of the chunk body
+            lo = max(start - (window - 1), 0)
+            hi = min(stop + kmer + window - 2, len(codes))
+            pos, hsh = minimizers(codes[lo:hi], kmer, window)
+            if len(pos):
+                pos = pos + lo
+                keep = (pos >= start) & (pos < stop)
+                if keep.any():
+                    pos_parts.append(pos[keep] + offset)
+                    hash_parts.append(hsh[keep])
+            start = stop
+    all_pos = (np.concatenate(pos_parts) if pos_parts
+               else np.zeros(0, np.int64))
+    all_hash = (np.concatenate(hash_parts) if hash_parts
+                else np.zeros(0, np.uint64))
+    order = np.argsort(all_hash, kind="stable")
+    sorted_hashes = all_hash[order]
+    # bucket table over the hash's top bits for the bucketed lookup
+    bucket_edges = (np.arange(1 << bucket_bits, dtype=np.uint64)
+                    << np.uint64(64 - bucket_bits))
+    bucket_lo = np.searchsorted(sorted_hashes, bucket_edges, side="left")
+    bucket_lo = np.append(bucket_lo, len(sorted_hashes)).astype(np.int64)
+    sorted_positions = all_pos[order]
+    if total < (1 << 32):  # hg38-scale genomes fit uint32, halving memory
+        sorted_positions = sorted_positions.astype(np.uint32)
+    return GenomeIndex(
+        kmer=kmer, window=window, seq_codes=seq_codes, chrom_names=names,
+        chrom_offsets=chrom_offsets, chrom_sizes=chrom_sizes,
+        sorted_hashes=sorted_hashes, sorted_positions=sorted_positions,
+        bucket_lo=bucket_lo, bucket_bits=bucket_bits)

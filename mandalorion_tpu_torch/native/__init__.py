@@ -1,8 +1,13 @@
 """Native (C++) host-runtime components, built on demand with g++ and
 loaded through ctypes (no pybind11 dependency). The port's own copy of
 mandalorion_tpu/native: same sources and compiler flags, its own build
-directory and its own loaded library. The library is required: a failed
-build or load raises, there is no numpy fallback."""
+directory and its own loaded library.
+
+MANDO_TPU_NO_NATIVE set to a non-empty value (read once a process, as
+the reference reads it) leaves the library unbuilt and unloaded: every
+`native_*` wrapper then returns None and its callers take their numpy
+twins. Without the switch the library is required: a failed build or
+load raises, it never falls back to the numpy twins."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
+_TRIED = False
 
 
 def _build_dir() -> str:
@@ -22,12 +28,16 @@ def _build_dir() -> str:
     return d
 
 
-def load_native() -> ctypes.CDLL:
-    """Compile (once) and load the native library. Raises RuntimeError
-    when g++ is missing, the build fails or the library does not load."""
-    global _LIB
-    if _LIB is not None:
+def load_native() -> Optional[ctypes.CDLL]:
+    """Compile (once) and load the native library; None, with nothing
+    built, when MANDO_TPU_NO_NATIVE is set. Raises RuntimeError when g++
+    is missing, the build fails or the library does not load."""
+    global _LIB, _TRIED
+    if _LIB is not None or _TRIED:
         return _LIB
+    if os.environ.get("MANDO_TPU_NO_NATIVE"):
+        _TRIED = True
+        return None
     here = os.path.dirname(__file__)
     srcs = [os.path.join(here, "minimizers.cpp"),
             os.path.join(here, "poa.cpp")]
@@ -221,6 +231,8 @@ def native_minimizers(codes: np.ndarray, k: int, w: int
                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(positions, hashes) via the C++ path."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     m = max(len(codes) - k + 1, 0)
     if m == 0:
@@ -239,6 +251,8 @@ def native_build_index(codes: np.ndarray, chrom_starts: np.ndarray,
     """Parallel minimizer-index build: (sorted_hashes, sorted_positions,
     bucket_lo), bit-identical to align/index.py's numpy path."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     starts = np.ascontiguousarray(chrom_starts, np.int64)
     sizes = np.ascontiguousarray(chrom_sizes, np.int64)
@@ -280,6 +294,8 @@ def native_seed_segments(codes: np.ndarray, k: int, w: int, max_occ: int,
     n_anchors, covs) arrays sorted by (chrom, diag, t). The returned arrays are views into reused
     buffers — consume (or copy) them before the next call."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     pos_is_u32 = 1 if sorted_positions.dtype == np.uint32 else 0
     global _SEED_BUFS
@@ -306,6 +322,8 @@ def native_lookup_ranges(sorted_hashes: np.ndarray, bucket_lo: np.ndarray,
                          queries: np.ndarray):
     """Per-query [lo, hi) ranges in the sorted hash array."""
     lib = load_native()
+    if lib is None:
+        return None
     queries = np.ascontiguousarray(queries, np.uint64)
     lo = np.empty(len(queries), np.int64)
     hi = np.empty(len(queries), np.int64)
@@ -323,6 +341,8 @@ def native_solve_dp_batch(q_list, t_list, modes, match, mismatch,
     (q_lens, t_lens, n_ops, ops_op, ops_dq, ops_dt) — ops concatenated in
     problem order."""
     lib = load_native()
+    if lib is None:
+        return None
     n = len(q_list)
     q_off = np.zeros(n + 1, np.int64)
     t_off = np.zeros(n + 1, np.int64)
@@ -358,6 +378,8 @@ def native_emit_psl(q: np.ndarray, g: np.ndarray, op_arr: np.ndarray,
     (C++ twin of aligner._runs_to_psl's loop; ops 0=M 1=I 2=D 3=N).
     Returns (stats[8], blk_sizes, blk_q, blk_t, cs_str)."""
     lib = load_native()
+    if lib is None:
+        return None
     n = len(op_arr)
     stats = np.zeros(8, np.int64)
     blk_sizes = np.empty(n, np.int64)
@@ -393,6 +415,8 @@ def native_seed_chain(codes: np.ndarray, k: int, w: int, max_occ: int,
     the winning chain's segment arrays are views into reused buffers,
     valid until the next call."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     pos_is_u32 = 1 if sorted_positions.dtype == np.uint32 else 0
     q0, qe, t0, te = _CHAIN_BUFS
@@ -424,6 +448,8 @@ def native_seed_chain2(codes: np.ndarray, k: int, w: int, max_occ: int,
     strand) with strand 0=forward / 1=reverse / -1=no chain; chain arrays
     are views into reused buffers."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     pos_is_u32 = 1 if sorted_positions.dtype == np.uint32 else 0
     q0, qe, t0, te = _CHAIN_BUFS
@@ -460,6 +486,8 @@ def native_align_read(codes: np.ndarray, k: int, w: int, max_occ: int,
     call). Returns (strand, chrom_idx, stats, block_sizes, q_starts,
     t_starts, cs) with strand None when unaligned."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     n = len(codes)
     cap = max(2 * n + 64, 4096)
@@ -517,6 +545,8 @@ def native_align_read_runs(codes: np.ndarray, k: int, w: int, max_occ: int,
     """align_read_c in runs mode: returns (strand, chrom_idx,
     [(op_char, q0, t0, len), ...]) with strand None when unaligned."""
     lib = load_native()
+    if lib is None:
+        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     n = len(codes)
     # runs <= q-advancing ops (~2n worst case) + per-gap structural ops
@@ -557,6 +587,8 @@ def native_parse_cs(cs: str, genome_start: int):
     Returns (status, gp, advances, introns_dict), or None when the string
     is malformed (the caller then reports it through the Python parser)."""
     lib = load_native()
+    if lib is None:
+        return None
     raw = cs.encode()
     cap = max(len(raw), 1)
     status = np.empty(cap, np.int8)
@@ -578,11 +610,13 @@ def native_parse_cs(cs: str, genome_start: int):
     return status[:n], gp[:n], advances[:n].astype(bool), introns
 
 
-def native_poa_consensus(seqs, params) -> np.ndarray:
+def native_poa_consensus(seqs, params) -> Optional[np.ndarray]:
     """Graph-POA consensus of oriented code arrays via the C++ banded
     engine (bit-identical to poa.graph.poa_consensus — the host fast path
     of the graph consensus engine). Returns the consensus codes."""
     lib = load_native()
+    if lib is None:
+        return None
     lens = np.array([len(s) for s in seqs], np.int64)
     flat = (np.concatenate([np.ascontiguousarray(s, np.uint8)
                             for s in seqs])
@@ -607,6 +641,8 @@ def native_poa_align(graph, q, params):
     Parity-test entry (the production path is native_poa_consensus,
     which keeps the graph in C++)."""
     lib = load_native()
+    if lib is None:
+        return None
     order = graph.topo_order()
     rank = {v: r for r, v in enumerate(order)}
     n = len(order)
@@ -678,6 +714,8 @@ def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
     (n_cand, cand_read, cand_strand, cand_chrom, cand_tbase, cand_nseg,
     (qs, qe, ts, te, cov))."""
     lib = load_native()
+    if lib is None:
+        return None
     n_reads = len(read_off) - 1
     pos_is_u32 = 1 if index.sorted_positions.dtype == np.uint32 else 0
     return _stage_candidates(
@@ -701,6 +739,8 @@ def native_stage_seed_anchors(anchor_off: np.ndarray, anchor_q: np.ndarray,
     genome position anchor_g). The same diagonal collapse, preparation
     and packing as `native_stage_seed_batch`, whose tuple it returns."""
     lib = load_native()
+    if lib is None:
+        return None
     off = np.ascontiguousarray(anchor_off, np.int64)
     q = np.ascontiguousarray(anchor_q, np.int64)
     g = np.ascontiguousarray(anchor_g, np.int64)
@@ -733,6 +773,8 @@ def native_stage_fill_batch(codes_all: np.ndarray, read_off: np.ndarray,
     (prob_read, mode, q0, t0, nq, nt)) — runs with op=4 are DP
     placeholders whose len is the global problem index."""
     lib = load_native()
+    if lib is None:
+        return None
     n_reads = len(read_off) - 1
     qs, qe, ts, te, _cov = segs
     chain_rows = np.ascontiguousarray(chain_rows, np.int16)
@@ -795,6 +837,8 @@ def native_stage_emit_batch(oriented: np.ndarray, read_off: np.ndarray,
     solver) and emit extended PSL per read. Returns (stats (n,8), blk_off,
     blk_sizes, blk_q, blk_t, cs_off, cs_bytes)."""
     lib = load_native()
+    if lib is None:
+        return None
     n_reads = len(read_off) - 1
     runs_op, runs_q0, runs_t0, runs_len = runs
     prob_read, prob_mode, prob_q0, prob_t0, prob_nq, prob_nt = probs

@@ -24,6 +24,13 @@ around the run (parallel.mesh.make_mesh: N distinct cards, or N virtual
 shards on the CPU); every batched device dispatch shards over it, with
 byte-identical results. --index_backend sharded splits the genome index
 into hash ranges over that mesh.
+
+MANDO_TPU_NO_NATIVE=1 runs without the port's native C++ library (it is
+then neither built nor loaded): seeding, gap fill, the host DP and PSL
+emission take their numpy twins and Python staging, a device chain runs
+the batch's segment lists through the chain kernel, and
+--consensus_backend auto resolves to device. The kernels stay on
+--device; the artifacts do not change.
 """
 
 from __future__ import annotations
@@ -99,8 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--consensus_backend", default="auto",
                    choices=["auto", "native", "device"],
                    help="graph-POA execution backend: auto (the host "
-                        "C++ engine), native, or device (the batched "
-                        "POA kernels on --device)")
+                        "C++ engine; device under MANDO_TPU_NO_NATIVE), "
+                        "native, or device (the batched POA kernels on "
+                        "--device)")
     p.add_argument("--index_backend", default="replicated",
                    choices=["replicated", "sharded"],
                    help="genome index placement: replicated per host, or "

@@ -18,10 +18,12 @@ Routes. Module A runs `cfg.align`'s route (`align_route`): the host route
 this process, with the chain kernel on `device` for chain 'device' and
 the DP kernel for dp 'device' (its plain version on `device` for
 'rowscan'; align/aligner.py's module docstring has the table). Module D's
-graph consensus runs the native C++ engine, or with
-`cfg.poa.backend == 'device'` the batched POA kernels on `device`
-(poa/kernels.py), in this process after the forked prepare workers have
-returned.
+graph consensus runs the backend that `poa.consensus.graph_backend`
+resolves `cfg.poa.backend` to: the native C++ engine, or the batched POA
+kernels on `device` (poa/kernels.py), in this process after the forked
+prepare workers have returned. 'auto' is the native engine, and the
+kernels under MANDO_TPU_NO_NATIVE (no native library: every stage then
+runs its numpy twins and Python staging, the kernels stay on `device`).
 
 Mesh. Under parallel.mesh.use_mesh (the CLI's --devices N) module A's
 chain and DP dispatches, module D's POA chunks and module Q's count
@@ -69,7 +71,8 @@ from mandalorion_tpu_torch.io.psl import (
 from mandalorion_tpu_torch.io.sam import sam_to_psl
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
 from mandalorion_tpu_torch.pipeline.observe import StageTimer
-from mandalorion_tpu_torch.poa.consensus import determine_consensus_batch
+from mandalorion_tpu_torch.poa.consensus import (
+    determine_consensus_batch, graph_backend)
 from mandalorion_tpu_torch.runtime import fork_ok, resolve_device
 
 VERSION = "mandalorion-tpu-torch 0.1.0"
@@ -419,10 +422,8 @@ def module_d(paths: Paths, cfg: PipelineConfig, annotation_path: str,
         # changes padding)
         from mandalorion_tpu_torch.poa.consensus import resolve_consensus_jobs
         flat = [job for locus_jobs in all_results for job in locus_jobs]
-        backend = (None if cfg.poa.backend == "auto"
-                   else cfg.poa.backend)
-        resolved = iter(resolve_consensus_jobs(flat, backend=backend,
-                                               device=device))
+        resolved = iter(resolve_consensus_jobs(
+            flat, backend=graph_backend(cfg.poa.backend), device=device))
         all_results = [[next(resolved) for _ in locus_jobs]
                        for locus_jobs in all_results]
 
@@ -565,7 +566,7 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
                          "with any chain_backend. The host route "
                          "(chain_backend 'native', dp_backend 'numpy') "
                          "runs in forked workers, which hold no mesh")
-    uses_device = on_device or cfg.poa.backend == "device"
+    uses_device = on_device or graph_backend(cfg.poa.backend) == "device"
     if uses_device:
         device = resolve_device(device)
     paths = Paths(out_path)

@@ -19,7 +19,9 @@ import numpy as np
 from mandalorion_tpu_torch.align.encode import encode, revcomp_codes
 from mandalorion_tpu_torch.align.pairwise import OrientationAligner
 from mandalorion_tpu_torch.config import PoaConfig
+from mandalorion_tpu_torch.native import load_native
 from mandalorion_tpu_torch.poa.graph import PoaParams
+from mandalorion_tpu_torch.runtime import require_native
 
 from mandalorion_tpu_torch.align.encode import decode as _decode
 
@@ -166,22 +168,36 @@ def prepare_consensus_jobs(
     return jobs
 
 
+def graph_backend(backend: Optional[str] = None) -> str:
+    """The backend that pending graph-POA jobs run on. None and 'auto'
+    resolve as the reference's `_graph_backend`: 'native' (the C++ banded
+    engine of native/poa.cpp) when the native library is loaded, 'device'
+    under MANDO_TPU_NO_NATIVE. 'native' under the switch raises, naming
+    it."""
+    if backend in (None, "auto"):
+        return "native" if load_native() is not None else "device"
+    if backend not in ("native", "device"):
+        raise ValueError(f"unknown consensus backend {backend!r}")
+    if backend == "native":
+        require_native("the native consensus backend "
+                       "(--consensus_backend native)")
+    return backend
+
+
 def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
                            backend: Optional[str] = None, device="cuda"
                            ) -> List[Tuple[str, List[str]]]:
-    """Compute phase: run every pending graph-POA job through `backend`:
-    'native' (also None, the default: on one device the C++ banded engine
-    of native/poa.cpp is what 'auto' resolves to), or 'device', batched
-    kernel dispatches on `device` (poa/kernels.py) across whatever set of
-    loci the jobs came from. The band half-width is a per-problem input
-    there, so jobs are grouped by their params without the band: jobs
-    whose bands differ (the band follows the median read length) share
-    every round's dispatch. Both produce the same consensi."""
+    """Compute phase: run every pending graph-POA job through `backend`
+    (`graph_backend` resolves None and 'auto'): 'native', the C++ banded
+    engine of native/poa.cpp, or 'device', batched kernel dispatches on
+    `device` (poa/kernels.py) across whatever set of loci the jobs came
+    from. The band half-width is a per-problem input there, so jobs are
+    grouped by their params without the band: jobs whose bands differ
+    (the band follows the median read length) share every round's
+    dispatch. Both produce the same consensi."""
     import dataclasses
     import os
-    backend = backend or "native"
-    if backend not in ("native", "device"):
-        raise ValueError(f"unknown consensus backend {backend!r}")
+    backend = graph_backend(backend)
     if backend == "native":
         from concurrent.futures import ThreadPoolExecutor
         from mandalorion_tpu_torch.native import native_poa_consensus

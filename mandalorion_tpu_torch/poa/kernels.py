@@ -15,6 +15,13 @@ step, deleted node or whole insertion run, and C expands it:
 
     ... -> forward (poa_forward) -> walk (poa_sweep) -> apply_runs (C)
 
+Under MANDO_TPU_NO_NATIVE (no native library) the graphs are Python
+`PoaGraph`s, as in the reference without its library, and every round
+goes through `_align_graphs` (`align_graph_batch`'s body with a band a
+problem; the step walk only):
+
+    graph_arrays (Python) -> forward -> walk (poa_walk) -> apply_path
+
 Two implementations of each device function, side by side:
 
 - `poa_forward_plain` / `poa_walk_plain` / `poa_sweep_plain`: plain
@@ -73,7 +80,8 @@ from mandalorion_tpu_torch.native import load_native
 from mandalorion_tpu_torch.parallel.mesh import (
     fetch_global, pad_rows, pipeline_mesh)
 from mandalorion_tpu_torch.poa.graph import NEG, PoaGraph, PoaParams
-from mandalorion_tpu_torch.runtime import LaunchCounter, resolve_device
+from mandalorion_tpu_torch.runtime import (
+    LaunchCounter, require_native, resolve_device)
 
 # One dispatch is chunked so that the forward's device tensors (three
 # int32 state rows of scratch plus four packed matrices: 28 bytes a DP
@@ -104,7 +112,8 @@ class RunObserver:
     """What a caller asks `poa_consensus_batch` to record while this
     object is installed as `OBSERVER`: rounds, chunk shapes and host
     seconds in the C staging calls (`apply_s` covers apply_steps and
-    apply_runs alike), always; with `time_kernels` a CUDA event pair
+    apply_runs alike; under MANDO_TPU_NO_NATIVE `fill_s` is graph_arrays'
+    and `apply_s` apply_path's), always; with `time_kernels` a CUDA event pair
     around every kernel launch (read after a synchronise by `kernel_ms`,
     the walk under the key of the kernel that ran); the numpy arrays of
     the chunks of `keep_rounds` as `kept` = [(round, W, l_cap, arrays)];
@@ -942,14 +951,21 @@ def align_graph_batch(graphs: Sequence[PoaGraph],
                       params: Optional[PoaParams] = None, device="cuda"
                       ) -> List[List[Tuple[int, Optional[int]]]]:
     """Align query[i] to the Python-held graph[i] for every i in one
-    (chunked) device dispatch; returns alignment paths for
-    PoaGraph.apply_path. The consensus path holds its graphs in C++
-    (`poa_consensus_batch`); this entry serves per-read parity checks
-    against `PoaGraph.align`."""
+    (chunked) device dispatch a width class, at band params.band; returns
+    alignment paths for PoaGraph.apply_path."""
     params = params or PoaParams()
     device = resolve_device(device)
     if len(graphs) != len(queries):
         raise ValueError("one query per graph expected")
+    return _align_graphs(graphs, queries, params, device,
+                         [params.band] * len(graphs), None, 0)
+
+
+def _align_graphs(graphs, queries, params, device, bands, obs, k):
+    """align_graph_batch's body with a band half-width a problem
+    (`bands`); `obs` (a RunObserver or None) records its chunks as round
+    k's. `poa_consensus_batch` runs its rounds through it under
+    MANDO_TPU_NO_NATIVE."""
     if not graphs:
         return []
     orders = [g.topo_order() for g in graphs]
@@ -960,7 +976,7 @@ def align_graph_batch(graphs: Sequence[PoaGraph],
     p_cap = _pow2_at_least(p_max, floor=4)
     by_width: dict = {}
     for i, (order, q) in enumerate(zip(orders, queries)):
-        w = _item_width(len(order), len(q), params.band, l_cap,
+        w = _item_width(len(order), len(q), bands[i], l_cap,
                         params.adaptive)
         by_width.setdefault(w, []).append(i)
     paths: List[Optional[List[Tuple[int, Optional[int]]]]] = (
@@ -970,15 +986,17 @@ def align_graph_batch(graphs: Sequence[PoaGraph],
         chunk = _chunk_items(n_cap, W)
         for c0 in range(0, len(idxs), chunk):
             _run_graph_chunk(idxs[c0:c0 + chunk], graphs, queries, orders,
-                             n_cap, l_cap, p_cap, W, params, paths, device)
+                             n_cap, l_cap, p_cap, W, params, bands, paths,
+                             device, obs, k)
     return paths  # type: ignore[return-value]
 
 
 def _run_graph_chunk(batch, graphs, queries, orders, n_cap, l_cap, p_cap,
-                     W, params, paths, device) -> None:
+                     W, params, bands, paths, device, obs, k) -> None:
     """Dispatch one chunk of (graph, query) problems; write each problem's
     alignment path into paths[original_index]."""
     B = len(batch)
+    t0 = time.perf_counter()
     base = np.zeros((B, n_cap), np.int32)
     preds = np.full((B, n_cap, p_cap), -1, np.int32)
     ends = np.zeros((B, n_cap), bool)
@@ -992,9 +1010,12 @@ def _run_graph_chunk(batch, graphs, queries, orders, n_cap, l_cap, p_cap,
         q = queries[gi]
         qq[bi, :len(q)] = q
         ql[bi] = len(q)
-    band = np.full(B, params.band, np.int32)
+    band = np.array([bands[gi] for gi in batch], np.int32)
+    if obs is not None:
+        obs.fill_s += time.perf_counter() - t0
+        obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W, l_cap, params)
     buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, band, W, l_cap,
-                             params, device)
+                             params, device, obs)
     for bi, gi in enumerate(batch):
         order = orders[gi]
         steps = buf[bi, :ks[bi]][::-1]
@@ -1010,7 +1031,7 @@ class NativePoaGraph:
     graph semantics as PoaGraph and the native consensus engine."""
 
     def __init__(self, seq_codes: np.ndarray):
-        self._lib = load_native()
+        self._lib = require_native("NativePoaGraph")
         seq = np.ascontiguousarray(seq_codes, np.uint8)
         self._h = self._lib.poa_graph_new_c(seq.ctypes.data, len(seq))
 
@@ -1090,7 +1111,13 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     consensus is what a call with that band alone gives.
 
     A `RunObserver` installed as `OBSERVER` sees the call's rounds,
-    chunks and timings; without one nothing is recorded."""
+    chunks and timings; without one nothing is recorded.
+
+    Under MANDO_TPU_NO_NATIVE the graphs are Python `PoaGraph`s and a
+    round is one `_align_graphs` call (`align_graph_batch`'s body with
+    each set's band) and `apply_path` a set (the
+    reference's rounds without its library): the same consensi, by the
+    step walk whatever `walk` asks."""
     params = params or PoaParams()
     device = resolve_device(device)
     if bands is None:
@@ -1098,6 +1125,8 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     if len(bands) != len(seq_sets):
         raise ValueError("one band per sequence set expected")
     obs = OBSERVER
+    if load_native() is None:
+        return _poa_rounds_python(seq_sets, params, device, bands, obs)
     graphs = [NativePoaGraph(s[0]) for s in seq_sets]
     max_reads = max((len(s) for s in seq_sets), default=0)
     for k in range(1, max_reads):
@@ -1158,3 +1187,25 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     for g in graphs:
         g.close()
     return out
+
+
+def _poa_rounds_python(seq_sets, params, device, bands, obs
+                       ) -> List[np.ndarray]:
+    """poa_consensus_batch's rounds on Python-held PoaGraphs."""
+    graphs = [PoaGraph(s[0]) for s in seq_sets]
+    max_reads = max((len(s) for s in seq_sets), default=0)
+    for k in range(1, max_reads):
+        live = [i for i, s in enumerate(seq_sets) if k < len(s)]
+        if not live:
+            break
+        if obs is not None:
+            obs.rounds += 1
+        paths = _align_graphs([graphs[i] for i in live],
+                              [seq_sets[i][k] for i in live], params, device,
+                              [bands[i] for i in live], obs, k)
+        t0 = time.perf_counter()
+        for i, path in zip(live, paths):
+            graphs[i].apply_path(seq_sets[i][k], path)
+        if obs is not None:
+            obs.apply_s += time.perf_counter() - t0
+    return [g.consensus() for g in graphs]

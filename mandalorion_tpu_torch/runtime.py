@@ -37,12 +37,18 @@ def fork_ok() -> bool:
     return threading.active_count() == 1 and not torch.cuda.is_initialized()
 
 
-def require_native():
-    """The port's native C++ library (built with g++ on first use).
-    Raises when it cannot be built or loaded: the port has no numpy or
-    Python fallback for it."""
+def require_native(what: str = "this entry point"):
+    """The port's native C++ library (built with g++ on first use), for
+    `what`, an entry that has no numpy twin. Raises when it cannot be
+    built or loaded, and when MANDO_TPU_NO_NATIVE is set."""
     from mandalorion_tpu_torch.native import load_native
-    return load_native()
+    lib = load_native()
+    if lib is None:
+        raise RuntimeError(
+            f"MANDO_TPU_NO_NATIVE is set, and {what} has no numpy twin of "
+            f"the native library: unset MANDO_TPU_NO_NATIVE, or take a "
+            f"route that runs without it")
+    return lib
 
 
 def kernel_build_dir() -> str:

@@ -3,8 +3,9 @@ tests/test_multihost.py: processes bootstrap through
 parallel.mesh.multihost_init (device="cpu": gloo, virtual CPU shards),
 form one mesh over all of them, and run the real collectives and
 dispatches: module Q's merge, module A's chain dispatch, and the whole
-pipeline. Each worker destroys its process group before it exits; a
-failed worker's siblings are killed."""
+pipeline. Each worker leaves its process group through `leave_group`
+(rank 0, which hosts the group's store, last) before it exits; a failed
+worker's siblings are killed."""
 
 import os
 import socket
@@ -14,6 +15,32 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_LEAVE = r"""
+import datetime
+import sys
+import torch.distributed as dist
+_LEAVE_PORT = int(sys.argv.pop())  # the last argument, from _run_ranks
+
+
+def leave_group(pid, world):
+    # Leave the group with rank 0 last. Supposed cause of a rare abort in
+    # gloo's teardown under load ("terminate called without an active
+    # exception", not reproduced): rank 0's process hosts the group's
+    # TCPStore, and a rank whose teardown outlives it aborts. Every rank
+    # passes a barrier after its last collective; ranks > 0 destroy their
+    # group and then say so through a store of this handshake's own (rank
+    # 0 its host), which rank 0 waits for before it destroys its group.
+    store = dist.TCPStore("127.0.0.1", _LEAVE_PORT, world, pid == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.barrier()
+    if pid:
+        dist.destroy_process_group()
+        store.set(f"left/{pid}", "1")
+    else:
+        store.wait([f"left/{r}" for r in range(1, world)])
+        dist.destroy_process_group()
+"""
 
 _MERGE = r"""
 import sys
@@ -38,8 +65,10 @@ try:
     assert (mesh_count_matrix(mesh, ids, 12) == 3).all()
     assert COLLECTIVES.count == 2, COLLECTIVES.count
     print(f"proc {pid} merge OK", flush=True)
+    leave_group(pid, 2)
 finally:
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 """
 
 _CHAIN = r"""
@@ -92,8 +121,10 @@ try:
     assert (mesh_count_matrix(mesh, ids, 12) == 3).all()
     print(f"proc {pid} digest {hashlib.sha256(rows.tobytes()).hexdigest()}",
           flush=True)
+    leave_group(pid, 4)
 finally:
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 """
 
 _PIPELINE = r"""
@@ -130,8 +161,10 @@ try:
         h.update(b)
     print(f"proc {pid} pipeline {h.hexdigest()} collectives "
           f"{COLLECTIVES.count}", flush=True)
+    leave_group(pid, 2)
 finally:
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 """
 
 
@@ -149,11 +182,16 @@ def _env():
 
 
 def _run_ranks(code, n, *args, timeout=240):
-    """Start n rank processes of `code`; returns their outputs. Every
-    child is killed if one fails or the time runs out."""
-    port = str(_free_port())
+    """Start n rank processes of `code` (after `_LEAVE`, which defines
+    leave_group and takes the last argument, its store's port); returns
+    their outputs. Every child is killed if one fails or the time runs
+    out."""
+    port = leave_port = str(_free_port())
+    while leave_port == port:
+        leave_port = str(_free_port())
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(pid), port, *map(str, args)],
+        [sys.executable, "-c", _LEAVE + code, str(pid), port,
+         *map(str, args), leave_port],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=ROOT, env=_env()) for pid in range(n)]
     outs = []
