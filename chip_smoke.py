@@ -10,7 +10,9 @@ line: a copy of this script run inside another tree of the port times
 that tree's chain route with the same code and inputs.
 
 Phases, in order; any failure raises and exits non-zero, and the last
-line is printed only when every phase passed:
+line is printed only when every phase passed. Each phase, and each part
+of phases 3 and 9, prints its seconds on a line `seconds: <what> <s>`;
+each run of a slice prints its wall seconds.
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No CUDA device: exit non-zero at once.
@@ -33,29 +35,29 @@ line is printed only when every phase passed:
      numpy arrays to fetched rows (host clock), the chain_rows call and
      the launch alone (CUDA events), with its bound from the bytes the
      work needs beside the padded count;
-   - poa_fwd, poa_walk, poa_sweep: (a) real chunks of a consensus run of
-     16 isoforms x 20 reads x about 2 kb at the first, a middle and the
-     last round, adaptive band; (b) the same chunks under the static
-     band; (c) a graph with a predecessor more than 256 rows back (one
-     read carries a 320-base insertion), and a second graph at W = 256
+   - poa_fwd, poa_walk, poa_sweep: (a) real chunks of a consensus run of 16
+     isoforms x 20 reads x about 2 kb at the first round, adaptive band;
+     (b) the middle and the last round's chunks under the static band (W
+     1024 and 2048); (c) a graph with a predecessor more than 256 rows back
+     (one read carries a 320-base insertion), and a second graph at W = 256
      with predecessors both the row before and 101 rows back (inside and
      beyond the forward's shared-memory ring, and beyond the step walk's
-     staged tile) whose last query also carries a deletion and an
-     insertion run; (d) one isoform whose queries are longer than 32,768
-     bases, with a 40-base insertion behind column 32,768: the consensus
-     must equal the native C++ engine's, and its graphs are over the
-     record walk's rank limit, so asked for records it must take the
-     step walk, by the launch counters; (e) a graph under that limit
-     whose query carries 30-base insertions, the last of them behind
-     column 32,768; (f) the isoforms of (a) under four bands in turns in
-     one call: one chunk a round, consensi against the native engine at
-     each band, and each problem's matrices against a launch that holds
-     its band alone; and, after the slice, the largest chunk module D
-     dispatched in it. On every chunk the record walk's records,
-     expanded, must be the step walk's steps; the two walks are timed in
-     turns on (c)'s last round, on (e) and on the largest chunk. Ladders
-     of hand-made cells hold the record walk's cuts (max_rec inside a
-     tile, 3 x rows transitions) against the plain version.
+     staged tile) whose last query also carries a deletion and an insertion
+     run, its fourth round; (d) one isoform whose queries are longer than
+     32,768 bases, with a 40-base insertion behind column 32,768: the
+     consensus must equal the native C++ engine's, and its graphs are over
+     the record walk's rank limit, so asked for records it must take the
+     step walk, by the launch counters; (e) a graph under that limit whose
+     query carries 30-base insertions, the last of them behind column
+     32,768; (f) the isoforms of (a) under four bands in turns in one call:
+     one chunk a round, consensi against the native engine at each band,
+     and each problem's matrices against a launch that holds its band
+     alone; and, after the slice, the largest chunk module D dispatched in
+     it. On every chunk the record walk's records, expanded, must be the
+     step walk's steps; the two walks are timed in turns on (c)'s last
+     round, on (e) and on the largest chunk. Ladders of hand-made cells
+     hold the record walk's cuts (max_rec inside a tile, 3 x rows
+     transitions) against the plain version.
    Times come from CUDA events at the main path's own shapes: the first
    read batch for dp and chain, module D's largest chunk (a whole round:
    every isoform still growing, whatever its band) for the POA kernels;
@@ -64,37 +66,45 @@ line is printed only when every phase passed:
    bytes over the card's memory rate and its operations over the card's
    ALU rate.
 4. slice: make_dataset(n_genes=40, n_reads_per_gene=500,
-   genome_len=20_000_000, seed=0), 20,000 reads on a 20 Mbp genome,
+   genome_len=20_000_000, seed=0)'s files (written by
+   tools/run_configs_torch.py's make_dataset_files, the same bytes),
+   20,000 reads on a 20 Mbp genome,
    through `mando-tpu-torch --device cuda --consensus_backend device`
    (APDFQ: module A on its device route, module D's graph POA through the
    POA kernels) and through the port's host route (`--chain_backend
    native --dp_backend numpy`, native consensus) in a separate process
-   that never touches CUDA. The device route runs four times, in turns:
-   step walk, record walk (MANDO_POA_SWEEP=1), record walk, step walk.
-   The six artifacts must be byte-identical every time; the launch
-   counters, set to 0 before each run, must show dp, chain, forward and
-   step walk in the step runs, and in the record runs one poa_sweep
-   launch for every chunk under the rank limit and a step walk for the
-   rest; the forward once a chunk, a chunk being a round of one width
-   class with more than six problems in the fullest.
-5. mesh (parallel/ on torch.distributed), after the four turns:
-   (a) a one-rank NCCL group (`multihost_init` on a free localhost port)
-   and `make_mesh(1)`: `mesh_count_matrix` against np.bincount, the
-   sharded index lookup (slice-20k's index in four hash-range shards,
-   the first reads' minimizers, each orientation refined) against
-   `GenomeIndex.lookup`, `sharded_batch_score` against its plain version
-   on the CPU; (b) on two shards of the one card (`Mesh.from_devices`,
-   the same group) `chain_batch_rows`, `solve_dp_fused` and
-   `dispatch_chunk` (both walks) on batches of 1, 3 and 2k + 1 problems
-   (the second shard all or partly padding) against the meshless call on
-   the card and the plain versions; (c) slice-20k through the device
-   route twice more, in this process as the turns: under the one-rank
-   mesh, and under the two-shard mesh with `--index_backend sharded`;
-   the six artifacts must equal the host route's and the chain, dp,
-   forward and step walk counters must be positive in each; wall time,
-   stage seconds beside turn 0's, peak device memory, and the
-   collectives' count and host ms are printed; (d) `make_mesh(2)` on the
-   one card must raise. The group is destroyed at the phase's end.
+   that never touches CUDA. The device route runs twice, in turns: step
+   walk, then record walk (MANDO_POA_SWEEP=1).
+   The seven files (the six artifacts and `.clean.genes`) must be
+   byte-identical every time; the launch counters, set to 0 before each
+   run, must show dp, chain, forward and step walk in the step runs, and
+   in the record runs one poa_sweep launch for every chunk under the rank
+   limit and a step walk for the rest; the forward once a chunk, a chunk
+   being a round of one width class with more than six problems in the
+   fullest.
+   Then the smaller slice that phases 5-8 drive: SMALL_DATASET (12
+   genes x 250 reads, 3,000 reads on 6 Mbp) through the host route in a
+   process of its own and once through the device route by steps,
+   byte-identical; its host artifacts and device turn are what those
+   phases compare with ("turn 0" there).
+5. mesh (parallel/ on torch.distributed), after the two turns: (a) a
+   one-rank NCCL group (`multihost_init` on a free localhost port) and
+   `make_mesh(1)`: `mesh_count_matrix` against np.bincount, the sharded
+   index lookup (slice-20k's index in four hash-range shards, the first
+   reads' minimizers, each orientation refined) against
+   `GenomeIndex.lookup`, `sharded_batch_score` against its plain version on
+   the CPU; (b) on two shards of the one card (`Mesh.from_devices`, the
+   same group) `chain_batch_rows`, `solve_dp_fused` and `dispatch_chunk`
+   (both walks) on batches of 1, 3 and 2k + 1 problems (the second shard
+   all or partly padding) against the meshless call on the card and the
+   plain versions; (c) the smaller slice through the device route twice
+   more, in this process: under the one-rank mesh, and under the two-shard
+   mesh with `--index_backend sharded`; the seven files must equal the
+   host route's and the chain, dp, forward and step walk counters must be
+   positive in each; wall time, stage seconds beside turn 0's, peak device
+   memory, and the collectives' count and host ms are printed; (d)
+   `make_mesh(2)` on the one card must raise. The group is destroyed at the
+   phase's end.
 6. mixed routes (the reference's other (chain_backend, dp_backend)
    pairs), after the mesh: (a) the DP problem list entry
    `solve_dp_device` on the card against its plain version on the card
@@ -110,49 +120,74 @@ line is printed only when every phase passed:
    plain version (CUDA events), beside the staged entry `solve_dp_fused`
    on the C fill stage's descriptors of the same reads (host clock) and
    its launches alone, with the bound from 23 operations a cell; (b)
-   slice-20k in this process as the turns, with `--consensus_backend
+   the smaller slice in this process, with `--consensus_backend
    device`, under chain device / dp numpy, chain native / dp device and
-   chain device / dp rowscan: the six artifacts must equal the host
+   chain device / dp rowscan: the seven files must equal the host
    route's, and the counters, set to 0 before each run, must show the
    chain kernel exactly when the chain is 'device', the DP kernel exactly
    when the DP is 'device', and the POA kernels always; stage seconds
    beside turn 0's and peak device memory are printed.
 7. trace (the stage profiler hook, MANDO_TPU_PROFILE), after the mixed
-   routes: slice-20k in this process as the turns, by steps and by
-   records, each with MANDO_TPU_PROFILE set to a directory of its own, so
-   that every stage runs under torch.profiler with the card's activity.
-   The six artifacts must equal the host route's; every stage must have
-   its trace, read by tools/trace_breakdown.py; each stage's trace must
-   name each hand kernel (dp_fused_kernel, chain_rows_kernel,
-   poa_fwd_kernel, poa_walk_kernel, poa_sweep_kernel) as often as its
-   launch counter moved in that stage, and a stage that launched one
-   must show a measured busy time; dp, chain, forward and step walk must
-   appear in the step run, the record walk in the record run; the
-   traced ms of the forward and of the walk must lie within 10% of the
-   CUDA-event sums of the same run. Printed: the kernel names kineto
-   recorded, and for each stage its timing.tsv seconds beside turn 0's,
-   the traced window, the card's busy ms and idle share, the five device
-   operations that take the most time, the three longest idle gaps with
-   the host operation under each, and the trace's bytes; for each run the
-   idle share over its stages.
-8. no native (MANDO_TPU_NO_NATIVE), after the mixed routes and before
-   the trace phase: (a) the segment-list chain entry
-   `chain_batch_segments` (the reference's `chain_batch_jax`) on
-   hand-made candidates of 400 to 700 segments (the entry keeps the
-   longest 512) and on the first read batch's candidates from the numpy
-   seeding's segment lists (`segment_candidates`): the packed rows
-   through the kernel and the route against the plain version, exactly,
-   timed as in phase 3, and the entry's chains and float32 scores on
-   the card against the entry on the CPU; (b) `align_graph_batch` on
-   case (a)'s Python-held graphs, two rounds, the card's paths against
-   the CPU's; (c) slice-20k's default device route (`--consensus_backend
-   auto`) through `run_pipeline` in a child process with
-   MANDO_TPU_NO_NATIVE=1 (the switch is read once a process): the six
-   artifacts must equal the host route's, the child must never map a
-   native library, and its counters must show chain and dp, the forward
-   and the step walk once a chunk of module D's `PoaGraph` rounds, and
-   no record walk; stage seconds beside turn 0's and the host route's.
-9. one JSON line with every kernel, the nvidia-smi line, then the result
+   routes: the smaller slice in this process, by steps and by records, each
+   with MANDO_TPU_PROFILE set to a directory of its own, so that every
+   stage runs under torch.profiler with the card's activity. The seven
+   files must equal the host route's; every stage must have its trace,
+   read by tools/trace_breakdown.py; each stage's trace must name each hand
+   kernel (dp_fused_kernel, chain_rows_kernel, poa_fwd_kernel,
+   poa_walk_kernel, poa_sweep_kernel) as often as its launch counter moved
+   in that stage, and a stage that launched one must show a measured busy
+   time; dp, chain, forward and step walk must appear in the step run, the
+   record walk in the record run; the traced ms of the forward and of the
+   walk must lie within 10% of the CUDA-event sums of the same run.
+   Printed: the kernel names kineto recorded, and for each stage its
+   timing.tsv seconds beside turn 0's, the traced window, the card's busy
+   ms and idle share, the five device operations that take the most time,
+   the three longest idle gaps with the host operation under each, and the
+   trace's bytes; for each run the idle share over its stages.
+8. no native (MANDO_TPU_NO_NATIVE), after the mixed routes and before the
+   trace phase: (a) the segment-list chain entry `chain_batch_segments`
+   (the reference's `chain_batch_jax`) on hand-made candidates of 400 to
+   700 segments (the entry keeps the longest 512) and on the first read
+   batch's candidates from the numpy seeding's segment lists
+   (`segment_candidates`): the packed rows through the kernel and the route
+   against the plain version, exactly, timed as in phase 3, and the entry's
+   chains and float32 scores on the card against the entry on the CPU; (b)
+   `align_graph_batch` on case (a)'s Python-held graphs, two rounds, the
+   card's paths against the CPU's; (c) the smaller slice's default device
+   route (`--consensus_backend auto`) through `run_pipeline` in a child
+   process with MANDO_TPU_NO_NATIVE=1 (the switch is read once a process):
+   the seven files must equal the host route's, the child must never map
+   a native library, and its counters must show chain and dp, the forward
+   and the step walk once a chunk of module D's `PoaGraph` rounds, and no
+   record walk; stage seconds beside turn 0's and the host route's.
+9. users' inputs and sizes, after the trace phase, with the dataset makers
+   and the small cases' dataset writers of tools/run_configs_torch.py;
+   every comparison is with the port's host route in a process of its own
+   that never touches CUDA, over the seven files, byte for byte: (a)
+   config-3 in full: make_dataset's files for 100 genes x 1,000 reads on
+   50 Mbp, the reads as two samples in a fofn (genes 0-49 FASTA, 50-99
+   gzipped FASTQ), once through the device route by steps;
+   printed: stage seconds and reads/s of both routes, module A's batches,
+   the first batch's chain candidates, longest candidate and DP problems,
+   module D's rounds, chunks and (n_cap, W) classes, the largest chunk's
+   (B, n_cap, W) and its forward and walk alone, the summed kernel ms,
+   launches, peak device memory; (b) tests/test_scale.py's 300 Mbp dataset
+   (4 x 75 Mbp, 2 genes a chromosome, 40 reads a gene) in three runs, each
+   in a process of its own (`run_configs_torch.py route`): the device route
+   writing `--index_cache <dir>`, the host route loading it memory-mapped,
+   the device route loading it; every planted gene one isoform on its own
+   chromosome; printed: each run's stage seconds (`index_build` built and
+   loaded), peak RSS, peak device memory and launches, and the genome's
+   upload to the card from the mapped cache against a built index's array
+   (host clock); (c) the small cases of tests/test_torch_e2e.py through the
+   device route in this process: two-sample fofn (then resumed with `-M FQ`
+   after .quant and .tpm are removed), three samples of FASTA and gzipped
+   FASTQ, gzipped FASTQ with no flag, `-w 2 -j gtag` and `-m`, PacBio BAM
+   with `-P` (.quant and .tpm compared with the output directory
+   substituted), two chromosomes with junk reads, all junk (no isoform file
+   on either route), config-2's dataset with its gates, and
+   `--external_sam` from the card's SAM through both routes.
+10. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -203,15 +238,30 @@ from mandalorion_tpu_torch.pipeline import observe
 from mandalorion_tpu_torch.poa import kernels as poa
 from mandalorion_tpu_torch.poa.graph import PoaGraph, PoaParams
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
-from mandalorion_tpu_torch.utils.simulate import make_dataset
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_config_tool():
+    """tools/run_configs_torch.py: the dataset makers, the small cases'
+    writers, the artifact list and its readers, and the run of a route in
+    a process of its own."""
+    path = os.path.join(ROOT, "tools", "run_configs_torch.py")
+    spec = importlib.util.spec_from_file_location("run_configs_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+TOOL = load_config_tool()
+ARTIFACTS = TOOL.ARTIFACTS          # the six artifacts and .clean.genes
+artifact_bytes, stage_seconds = TOOL.artifact_bytes, TOOL.stage_seconds
 DATASET = dict(n_genes=40, n_reads_per_gene=500, genome_len=20_000_000,
                seed=0)
-ARTIFACTS = ("Isoforms.filtered.fasta", "Isoforms.filtered.clean.psl",
-             "Isoforms.filtered.clean.gtf", "Isoforms.filtered.clean.quant",
-             "Isoforms.filtered.clean.tpm",
-             os.path.join("tmp", "reads2isoforms.txt"))
+# the smaller slice that phases 5-8 drive, with its own host run and
+# device turn: 3,000 reads on 6 Mbp
+SMALL_DATASET = dict(n_genes=12, n_reads_per_gene=250, genome_len=6_000_000,
+                     seed=0)
 ROW_CLASSES = ((1, 8), (9, 32), (33, 128), (129, 512), (513, 2048))
 WIDTH_CLASSES = ((1, 127), (128, 255), (256, 511), (512, 1023), (1024, 2303))
 # the chain's sets beside the main path (chain_random_sets) and their
@@ -290,6 +340,16 @@ SWEEP_READ_BYTES = {poa.REC_DIAG: 8, poa.REC_DEL: 8, poa.REC_INS: 12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def timed(what: str):
+    """Logs `seconds: <what> <s>` when the block ends, passed or not."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        log(f"seconds: {what} {time.time() - t0:.1f}")
 
 
 PR_SET_CHILD_SUBREAPER = 36
@@ -382,6 +442,18 @@ def run(cmd, env=None, **kw) -> str:
     return proc.stdout
 
 
+def cuda_call(fn):
+    """(fn(), its wall time in ms on the current stream by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean wall time of fn() on the current stream, by CUDA events."""
     torch.cuda.synchronize()
@@ -429,7 +501,7 @@ def random_dp_problems(rng, device):
     for rows in ROW_CLASSES:
         for width in WIDTH_CLASSES:
             for mode in (0, 1, 2):
-                for k in range(4):
+                for k in range(2):
                     specs.append((int(rng.integers(rows[0], rows[1] + 1)),
                                   int(rng.integers(width[0], width[1] + 1)),
                                   mode, k % 2 == 0))
@@ -471,7 +543,7 @@ def check_dp_random(rng, device) -> int:
                     nt[sel], mode[sel], cfg,
                     int((nq[sel] + nt[sel]).max()))
             got = kernels.dp_fused(*args)
-            want = kernels.dp_fused_plain(*args)
+            want, plain = cuda_call(lambda: kernels.dp_fused_plain(*args))
             e = max_abs_err(got, want)
             if e:
                 raise AssertionError(
@@ -480,7 +552,6 @@ def check_dp_random(rng, device) -> int:
             err = max(err, e)
             if cfg.end_bonus == cfg.zdrop == 0:
                 ms = cuda_ms(lambda: kernels.dp_fused(*args), 3)
-                plain = cuda_ms(lambda: kernels.dp_fused_plain(*args), 1)
                 log(f"dp: rows {lo}..{hi}, {len(sel)} problems (target "
                     f"1..{int(nt[sel].max())}): {ms:.3f} ms vs plain "
                     f"{plain:.3f} ms")
@@ -828,7 +899,7 @@ def poa_problem_tensors(arrays, params, W, device):
 
 
 def check_poa_chunk(what, arrays, params, W, l_cap, device,
-                    sweep_only=False):
+                    sweep_only=False, plain_ms=None):
     """Forward, step walk and record walk kernels against their plain
     versions on one chunk: the matrices' rows 0..nn[b] (the kernel leaves
     the rows past nn[b] unwritten, `clear_rows_past`), buf[:ks] and ks,
@@ -838,7 +909,8 @@ def check_poa_chunk(what, arrays, params, W, l_cap, device,
     neither the forward nor the step walk is compared with its plain
     version (a plain walk costs a millisecond a step). Returns the
     measured largest differences (forward, walk, sweep); raises unless
-    all are 0."""
+    all are 0. A dict given as plain_ms receives each plain version's
+    time of its one call here, by CUDA events."""
     fwd_in, (nn, ends, ql) = poa_problem_tensors(arrays, params, W, device)
     mats = poa.poa_forward(*fwd_in)
     buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
@@ -849,15 +921,19 @@ def check_poa_chunk(what, arrays, params, W, l_cap, device,
         return rows * (torch.arange(rows.shape[1], device=device)
                        [None, :, None] < n[:, None, None])
 
+    times = {} if plain_ms is None else plain_ms
     e_fwd = e_walk = 0
     want = mats
     if not sweep_only:
-        want = poa.poa_forward_plain(*fwd_in)
+        want, times["poa_fwd"] = cuda_call(
+            lambda: poa.poa_forward_plain(*fwd_in))
         e_fwd = max_abs_err(poa.clear_rows_past(mats, nn), want)
-        want_buf, want_ks = poa.poa_walk_plain(nn, ends, ql, want, l_cap)
+        (want_buf, want_ks), times["poa_walk"] = cuda_call(
+            lambda: poa.poa_walk_plain(nn, ends, ql, want, l_cap))
         e_walk = max_abs_err([ks, live(buf, want_ks)],
                              [want_ks, live(want_buf, want_ks)])
-    want_recs, want_counts = poa.poa_sweep_plain(nn, ends, ql, want)
+    (want_recs, want_counts), times["poa_sweep"] = cuda_call(
+        lambda: poa.poa_sweep_plain(nn, ends, ql, want))
     e_sweep = max_abs_err([counts, live(recs, want_counts)],
                           [want_counts, live(want_recs, want_counts)])
     if e_fwd or e_walk or e_sweep:
@@ -891,10 +967,11 @@ def capture_consensus(sets, params, device, rounds, bands=None):
 
 def check_ring_and_tile(rng, device):
     """Case (c), second graph: predecessors inside and beyond the forward's
-    shared-memory ring in one problem at W = 256, every round against the
-    plain versions; the last round's path must leave the step walk's tile
-    every way there is: deletions, an insertion run, a branch to a
-    predecessor beyond the tile."""
+    shared-memory ring in one problem at W = 256, its last (fourth) round
+    against the plain versions (the first has only predecessors one row
+    back, as in (a)); the last round's path must
+    leave the step walk's tile every way there is: deletions, an
+    insertion run, a branch to a predecessor beyond the tile."""
     cfg = POA_RING
     true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
     half = cfg["length"] // 2
@@ -914,12 +991,12 @@ def check_ring_and_tile(rng, device):
         raise AssertionError("(c) ring graph: consensus on the card != "
                              "native engine")
     errs = []
-    for k, W, l_cap, arrays in kept:
+    for k, W, l_cap, arrays in kept[-1:]:
         preds, n = arrays[1][0], int(arrays[2][0])
         back = np.where(preds[:n] >= 1,
                         np.arange(1, n + 1)[:, None] - preds[:n], 0)
-        if k >= 2 and not (W == 256 and (back == 1).any()
-                           and back.max() > max(RING_ROWS, TILE_ROWS)):
+        if not (W == 256 and (back == 1).any()
+                and back.max() > max(RING_ROWS, TILE_ROWS)):
             raise AssertionError(f"(c) ring graph, round {k}: W {W}, "
                                  f"back-distances to {back.max()}")
         errs.append(check_poa_chunk(
@@ -1059,6 +1136,7 @@ def check_poa_cases(rng, device):
     largest differences (forward, walk, sweep) over every chunk compared,
     and case (a)'s (sets, adaptive params)."""
     errs = []
+    t_case = time.time()
     cfg = POA_SETS
     sets = []
     for _ in range(cfg["n_iso"]):
@@ -1078,13 +1156,20 @@ def check_poa_cases(rng, device):
         f"{cfg['length']} bases: consensi on the card == native engine")
     static = PoaParams(band=band, adaptive=False)
     for k, W, l_cap, arrays in kept:
-        errs.append(check_poa_chunk(f"(a) round {k}, adaptive band", arrays,
-                                    adaptive, W, l_cap, device))
+        # the adaptive band at the first round; the static band where its
+        # width is over 256 (the middle and last rounds)
+        if k == 1:
+            errs.append(check_poa_chunk(f"(a) round {k}, adaptive band",
+                                        arrays, adaptive, W, l_cap, device))
         nn, ql = arrays[2], arrays[5]
         w_static = max(poa._item_width(int(n), int(q), band, l_cap, False)
                        for n, q in zip(nn, ql))
-        errs.append(check_poa_chunk(f"(b) round {k}, static band", arrays,
-                                    static, w_static, l_cap, device))
+        if k != 1:
+            errs.append(check_poa_chunk(f"(b) round {k}, static band",
+                                        arrays, static, w_static, l_cap,
+                                        device))
+    log(f"seconds: phase 3 poa (a)-(b) {time.time() - t_case:.1f}")
+    t_case = time.time()
 
     cfg = POA_LONG_EDGE
     true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
@@ -1107,7 +1192,11 @@ def check_poa_cases(rng, device):
     errs.append(check_poa_chunk(f"(c) round {k}, predecessor {back} rows "
                                 f"back", arrays, params, W, l_cap, device))
     errs += check_ring_and_tile(rng, device)
+    log(f"seconds: phase 3 poa (c) {time.time() - t_case:.1f}")
+    t_case = time.time()
     errs.append(check_mixed_bands(sets, device))
+    log(f"seconds: phase 3 poa (f) {time.time() - t_case:.1f}")
+    t_case = time.time()
 
     cfg = POA_LONG_QUERY
     true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
@@ -1149,6 +1238,8 @@ def check_poa_cases(rng, device):
     log(f"poa: (d) asked for records, row caps {caps} are over the rank "
         f"limit: {n_walk} step walk launches, {n_sweep} sweep launches, "
         f"same consensus")
+    log(f"seconds: phase 3 poa (d) {time.time() - t_case:.1f}")
+    t_case = time.time()
 
     cfg = POA_LONG_RUNS
     true = rng.integers(0, 4, cfg["length"]).astype(np.uint8)
@@ -1193,6 +1284,7 @@ def check_poa_cases(rng, device):
         "records records steps: " + " ".join(f"{ms:.3f}" for ms in turns)
         + " ms")
     errs.append((0, 0, check_sweep_cuts(device)))
+    log(f"seconds: phase 3 poa (e) and ladders {time.time() - t_case:.1f}")
     return tuple(max(e[i] for e in errs) for i in range(3)), (sets,
                                                               adaptive)
 
@@ -1239,8 +1331,10 @@ def check_poa_main_path(largest, device) -> dict:
     forward and the step walk timed on its five tallest problems alone,
     the shape of the largest chunk while a round was split by band."""
     arrays, W, l_cap, params = largest
+    plain_ms = {}
     e_fwd, e_walk, e_sweep = check_poa_chunk(
-        "module D's largest chunk", arrays, params, W, l_cap, device)
+        "module D's largest chunk", arrays, params, W, l_cap, device,
+        plain_ms=plain_ms)
     five = tallest_problems(arrays, 5)
     f5_ms, w5_ms, steps5 = time_poa_kernels(five, params, W, l_cap, device)
     log(f"poa: the largest chunk's five tallest problems alone (n_cap "
@@ -1251,13 +1345,11 @@ def check_poa_main_path(largest, device) -> dict:
     _buf, ks = poa.poa_walk(nn, ends, ql, mats, l_cap)
     recs, counts = poa.poa_sweep(nn, ends, ql, mats)
     f_ms = cuda_ms(lambda: poa.poa_forward(*fwd_in), 3)
-    f_plain = cuda_ms(lambda: poa.poa_forward_plain(*fwd_in), 1)
     turn_ms = time_walks(arrays, params, W, l_cap, device)
     w_ms = (turn_ms[0] + turn_ms[3]) / 2
     s_ms = (turn_ms[1] + turn_ms[2]) / 2
-    w_plain = cuda_ms(lambda: poa.poa_walk_plain(nn, ends, ql, mats, l_cap),
-                      1)
-    s_plain = cuda_ms(lambda: poa.poa_sweep_plain(nn, ends, ql, mats), 1)
+    f_plain, w_plain, s_plain = (plain_ms[k] for k in (
+        "poa_fwd", "poa_walk", "poa_sweep"))
     base, preds, nn_a, _ends, qq, _ql, band = arrays
     rows = nn_a.astype(np.int64)
     cells = int(((rows + 1) * W).sum())
@@ -1307,24 +1399,6 @@ def check_poa_main_path(largest, device) -> dict:
 
 # -------------------------------------------------------------- slice
 
-def artifact_bytes(out_dir: str) -> dict:
-    blobs = {}
-    for name in ARTIFACTS:
-        path = os.path.join(out_dir, name)
-        if not os.path.exists(path) or os.path.getsize(path) == 0:
-            raise AssertionError(f"{path} missing or empty")
-        with open(path, "rb") as fh:
-            blobs[name] = fh.read()
-    return blobs
-
-
-def stage_seconds(out_dir: str) -> dict:
-    with open(os.path.join(out_dir, "tmp", "timing.tsv")) as fh:
-        return {k: float(v) for k, v in
-                (line.rstrip("\n").split("\t")[:2] for line in fh
-                 if line.strip() and not line.startswith("stage"))}
-
-
 KERNELS = (
     ("dp_fused", "mandalorion_tpu_torch/csrc/dp.cu",
      "mandalorion_tpu/align/kernels.py:186", kernels.DP_LAUNCHES),
@@ -1338,9 +1412,9 @@ KERNELS = (
     ("poa_sweep", "mandalorion_tpu_torch/csrc/poa_sweep.cu",
      "mandalorion_tpu/poa/pallas_kernel.py:469", poa.POA_SWEEP_LAUNCHES),
 )
-# the device route's runs, in turns; the first two give the launch counts
-# that are reported
-ROUTE_TURNS = ("steps", "sweep", "sweep", "steps")
+# the device route's runs, in turns; they give the launch counts that are
+# reported
+ROUTE_TURNS = ("steps", "sweep")
 
 
 def run_device_route(out_dir, inputs, walk, keep_largest) -> dict:
@@ -1393,6 +1467,36 @@ def check_route_launches(run: dict) -> None:
             or (run["walk"] == "sweep") != (swept > 0):
         raise AssertionError(f"{run['walk']} run: launches {launches}, "
                              f"expected {want} for {len(chunks)} chunks")
+
+
+def small_slice(tmp):
+    """SMALL_DATASET through the host route (a process of its own) and
+    once through the device route by steps, byte-identical: the inputs,
+    host artifacts and stage seconds, the device turn and the read count
+    that phases 5-8 compare with."""
+    d = os.path.join(tmp, "small")
+    n_reads = TOOL.make_dataset_files(d, **SMALL_DATASET)
+    inputs = ["-G", os.path.join(d, "genome.fasta"),
+              "-g", os.path.join(d, "ann.gtf"),
+              "-f", os.path.join(d, "reads.fasta")]
+    host_dir = os.path.join(d, "host")
+    host_s = host_runs([(host_dir, inputs)])
+    turn = run_device_route(os.path.join(d, "port"), inputs, "steps",
+                            keep_largest=False)
+    ref = artifact_bytes(host_dir)
+    if artifact_bytes(os.path.join(d, "port")) != ref:
+        raise AssertionError("the smaller slice: the device route's "
+                             "artifacts differ from the host run")
+    if min(turn["launches"][k] for k in ("dp_fused", "chain_rows",
+                                         "poa_fwd", "poa_walk")) <= 0:
+        raise AssertionError(f"the smaller slice: launches "
+                             f"{turn['launches']}")
+    log(f"the smaller slice: {n_reads} reads, {SMALL_DATASET['genome_len']} "
+        f"bp, {SMALL_DATASET['n_genes']} genes; host route {host_s:.1f}s; "
+        f"the device route by steps {len(ARTIFACTS)} artifacts "
+        f"byte-identical; launches {turn['launches']}; peak device memory "
+        f"{turn['peak']} bytes; wall {turn['seconds']:.1f}s")
+    return inputs, ref, stage_seconds(host_dir), turn, n_reads
 
 
 # ---------------------------------------------------------------- mesh
@@ -2112,6 +2216,298 @@ def trace_phase(tmp, inputs, ref, turn0) -> None:
     log(f"trace: phase passed, {time.time() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------- users' inputs
+
+# phase 9 (a): config-3 in full, make_dataset's files, the reads as two
+# samples in a fofn: genes 0-49 as FASTA, genes 50-99 as gzipped FASTQ
+CONFIG3 = dict(n_genes=100, n_reads_per_gene=1000, genome_len=50_000_000,
+               seed=0)
+CONFIG3_FIRST_SAMPLE = 50_000
+# (b): tests/test_scale.py's 300 Mbp dataset
+SCALE = dict(n_chroms=4, chrom_len=75_000_000, genes_per_chrom=2,
+             per_gene=40)
+USERS_TIMEOUT_S = 900
+# (c): the small cases of tests/test_torch_e2e.py, by the function of
+# tools/run_configs_torch.py that writes each dataset, and their flags
+SMALL_CASES = (("two-sample fofn", "two_sample", ("-R", "3")),
+               ("three-sample FASTA and gzipped FASTQ", "three_sample_mixed",
+                ("-R", "3")),
+               ("gzipped FASTQ", "spliced_and_mono", ()),
+               ("gzipped FASTQ -w 2 -j gtag", "spliced_and_mono",
+                ("-w", "2", "-j", "gtag")),
+               ("gzipped FASTQ -m", "spliced_and_mono", ("-m",)),
+               ("PacBio BAM -P", "pacbio_bam", ()),
+               ("two chromosomes with junk", "two_chromosomes_junk", ()),
+               ("all junk", "all_junk", ()))
+# the host route's runs, in turn, in one process that never touches CUDA
+HOST_CHILD = r"""
+import json, sys
+from mandalorion_tpu_torch.pipeline import cli
+for argv in json.loads(sys.argv[1]):
+    if cli.main(argv) != 0:
+        raise SystemExit(f"the host route failed: {argv}")
+"""
+
+
+def host_runs(runs) -> float:
+    """The port's host route (`TOOL.HOST_ROUTE`) on each (out_dir, inputs)
+    of `runs`, in turn, in one child process; returns its seconds."""
+    t0 = time.time()
+    run([sys.executable, "-c", HOST_CHILD, json.dumps(
+        [["-p", out, *inputs, *TOOL.HOST_ROUTE] for out, inputs in runs])],
+        timeout=USERS_TIMEOUT_S)
+    return time.time() - t0
+
+
+def same_outputs(got_dir, want_dir, what, pacbio=False) -> None:
+    """The seven files byte-identical, or absent from both; with `pacbio`
+    the .quant and .tpm headers, which name the converted FASTA under the
+    output directory, compare with that directory substituted."""
+    for name in ARTIFACTS:
+        paths = [os.path.join(d, name) for d in (got_dir, want_dir)]
+        present = [os.path.exists(p) for p in paths]
+        if present[0] != present[1]:
+            raise AssertionError(f"{what}: {name} present {present[0]} on "
+                                 f"the card's route, {present[1]} on the "
+                                 f"host route")
+        if not present[0]:
+            continue
+        blobs = []
+        for path, out in zip(paths, (got_dir, want_dir)):
+            with open(path, "rb") as fh:
+                blob = fh.read()
+            if pacbio and name.endswith((".quant", ".tpm")):
+                blob = blob.replace(out.encode(), b"<out>")
+            blobs.append(blob)
+        if blobs[0] != blobs[1]:
+            raise AssertionError(f"{what}: {name} differs from the host "
+                                 f"route's")
+
+
+@contextlib.contextmanager
+def module_a_batches(out: list):
+    """While entered, each batch of the device route appends a dict: its
+    reads, chain candidates, the longest candidate's segments and its DP
+    problems. Observation only: the calls go on to the route's own."""
+    cls = TorchSpliceAligner
+    saved = cls.map_batch, cls.chain_batch, cls.dp_batch
+
+    def map_batch(self, reads):
+        out.append(dict(reads=len(reads)))
+        return saved[0](self, reads)
+
+    def chain_batch(self, seeded):
+        n_cand, n_seg = int(seeded[0]), seeded[5]
+        out[-1].update(candidates=n_cand, longest=int(n_seg[:n_cand].max())
+                       if n_cand else 0)
+        return saved[1](self, seeded)
+
+    def dp_batch(self, probs, oriented, read_off):
+        out[-1].update(problems=len(probs[1]),
+                       max_rows=int(np.max(probs[4], initial=0)))
+        return saved[2](self, probs, oriented, read_off)
+
+    cls.map_batch, cls.chain_batch, cls.dp_batch = (map_batch, chain_batch,
+                                                    dp_batch)
+    try:
+        yield out
+    finally:
+        cls.map_batch, cls.chain_batch, cls.dp_batch = saved
+
+
+def config3_phase(tmp, device) -> None:
+    """Phase 9 (a): config-3 in full, card against the host route."""
+    d = os.path.join(tmp, "config3")
+    t0 = time.time()
+    n_reads = TOOL.make_dataset_files(d, **CONFIG3)
+    fofn = TOOL.split_samples(d, CONFIG3_FIRST_SAMPLE)
+    os.remove(os.path.join(d, "reads.fasta"))
+    log(f"users (a) config-3: {n_reads} reads on "
+        f"{CONFIG3['genome_len']} bp, {CONFIG3['n_genes']} genes, two "
+        f"samples (FASTA, gzipped FASTQ) ({time.time() - t0:.1f}s)")
+    inputs = ["-G", os.path.join(d, "genome.fasta"),
+              "-g", os.path.join(d, "ann.gtf"), "-f", fofn]
+    host_dir, card_dir = os.path.join(d, "host"), os.path.join(d, "card")
+    host_s = host_runs([(host_dir, inputs)])
+    log(f"users (a) host route: wall {host_s:.1f}s")
+    batches = []
+    with module_a_batches(batches):
+        run_ = run_device_route(card_dir, inputs, "steps", keep_largest=True)
+    same_outputs(card_dir, host_dir, "config-3")
+    check_route_launches(run_)
+    stats, port_t, ref_t = run_["stats"], run_["stages"], \
+        stage_seconds(host_dir)
+    first = batches[0]
+    log(f"users (a) config-3 through the card's route (step walk): "
+        f"{len(ARTIFACTS)} files byte-identical to the host route; "
+        f"launches {run_['launches']}; peak device memory {run_['peak']} "
+        f"bytes; wall {run_['seconds']:.1f}s")
+    log("users (a) stage seconds, card | host: " + ", ".join(
+        f"{k} {port_t[k]:.2f} | {ref_t[k]:.2f}" for k in ref_t))
+    log(f"users (a) module A {n_reads / port_t['A_alignment']:.1f} vs "
+        f"{n_reads / ref_t['A_alignment']:.1f} reads/s, APDFQ (index build "
+        f"included) {n_reads / sum(port_t.values()):.1f} vs "
+        f"{n_reads / sum(ref_t.values()):.1f} reads/s, card vs host")
+    log(f"users (a) module A: {len(batches)} batches of "
+        f"{[b['reads'] for b in batches]} reads; the first: "
+        f"{first.get('candidates', 0)} chain candidates, the longest "
+        f"{first.get('longest', 0)} segments; {first.get('problems', 0)} "
+        f"DP problems, at most {first.get('max_rows', 0)} query rows")
+    sizes = [c[0] for c in stats.chunks]
+    classes = collections.Counter((c[1], c[2]) for c in stats.chunks)
+    big = max(stats.chunks, key=lambda c: c[0] * c[1] * c[2])
+    ms = run_["kernel_ms"]
+    log(f"users (a) module D: {stats.rounds} rounds, {len(stats.chunks)} "
+        f"chunks, problems a chunk {min(sizes)}..{max(sizes)} (mean "
+        f"{sum(sizes) / len(sizes):.1f}), chunks over 40 problems "
+        f"{sum(b > 40 for b in sizes)}, W over 256 "
+        f"{sum(c[2] > 256 for c in stats.chunks)}; (n_cap, W): chunks "
+        f"{dict(sorted(classes.items()))}; the largest (B, n_cap, W) "
+        f"{big[:3]}; forward {ms['poa_fwd']:.1f} ms, step walk "
+        f"{ms['poa_walk']:.1f} ms by CUDA events summed over the run; host "
+        f"fill_arrays {stats.fill_s:.2f} s, apply_steps {stats.apply_s:.2f} "
+        f"s")
+    arrays, W, l_cap, params = stats.largest
+    f_ms, w_ms, steps = time_poa_kernels(arrays, params, W, l_cap, device)
+    log(f"users (a) module D's largest chunk alone ({arrays[0].shape[0]} "
+        f"problems, n_cap {arrays[0].shape[1]}, W {W}, {steps} walk steps): "
+        f"forward {f_ms:.3f} ms, step walk {w_ms:.3f} ms (CUDA events)")
+
+
+def scale_phase(tmp, device) -> None:
+    """Phase 9 (b): the 300 Mbp dataset, the index cache in turns."""
+    d = os.path.join(tmp, "scale")
+    t0 = time.time()
+    truth = TOOL.scale_files(d, **SCALE)
+    n_reads = len(truth) * SCALE["per_gene"]
+    log(f"users (b) 300 Mbp: {n_reads} reads on {SCALE['n_chroms']} x "
+        f"{SCALE['chrom_len']} bp ({time.time() - t0:.1f}s)")
+    inputs = ["-G", os.path.join(d, "genome.fasta"),
+              "-g", os.path.join(d, "ann.gtf"),
+              "-f", os.path.join(d, "reads.fasta")]
+    res = TOOL.cache_turns(d, device.type, inputs, n_reads, truth,
+                           timeout=USERS_TIMEOUT_S)
+    if not res["ok"]:
+        raise AssertionError(f"300 Mbp: isoforms by chromosome "
+                             f"{res['isoform_chroms']}, planted "
+                             f"{res['planted']}")
+    for label, r in res["runs"].items():
+        launches = r["launches"]
+        if label.startswith("device") and min(
+                launches[k] for k in ("chain_rows", "dp_fused", "poa_fwd",
+                                      "poa_walk")) <= 0:
+            raise AssertionError(f"300 Mbp, {label}: launches {launches}")
+    log(f"users (b) 300 Mbp: three turns byte-identical, every planted gene "
+        f"one isoform on its own chromosome; index_build "
+        + ", ".join(f"{label} {r['stages']['index_build']:.2f} s"
+                    for label, r in res["runs"].items()))
+    from mandalorion_tpu_torch.align.aligner import genome_tensor
+    from mandalorion_tpu_torch.align.index import load_index
+    mapped = load_index(os.path.join(d, "genome.idx")).seq_codes
+    built = np.array(mapped)
+    times = {"mapped": [], "built": []}
+    for _turn in range(2):
+        for what, codes in (("mapped", mapped), ("built", built)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = genome_tensor(codes, device)
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3)
+            if what == "mapped" and not torch.equal(
+                    on_card.cpu(), torch.from_numpy(built)):
+                raise AssertionError("300 Mbp: the mapped genome's upload "
+                                     "differs from the codes")
+            del on_card
+    log(f"users (b) the genome's upload ({len(built)} bytes, host clock, two "
+        f"turns): from the mapped cache (read-only, copied first) "
+        + ", ".join(f"{t:.1f}" for t in times["mapped"])
+        + " ms; from a freshly built index's array (pageable) "
+        + ", ".join(f"{t:.1f}" for t in times["built"]) + " ms")
+
+
+def small_cases_phase(tmp, device) -> None:
+    """Phase 9 (c): the small cases of tests/test_torch_e2e.py and
+    config-2's gates through the card's route."""
+    from mandalorion_tpu_torch.config import (AlignConfig as PortAlign,
+                                              PipelineConfig, PoaConfig)
+    from mandalorion_tpu_torch.pipeline.stages import run_pipeline
+    from mandalorion_tpu_torch.utils.simulate import (
+        evaluate_adversarial, make_adversarial_dataset)
+    cases = []
+    for k, (label, writer, flags) in enumerate(SMALL_CASES):
+        d = os.path.join(tmp, f"small{k}")
+        os.makedirs(d)
+        cases.append((label, d, [*getattr(TOOL, writer)(d), *flags]))
+    d2 = os.path.join(tmp, "config2")
+    truth = make_adversarial_dataset(d2, reads_per_isoform=12)
+    cases.append(("config-2", d2, [
+        "-G", os.path.join(d2, "genome.fasta"), "-g",
+        os.path.join(d2, "ann.gtf"), "-f", os.path.join(d2, "reads.fasta")]))
+    host_s = host_runs([(os.path.join(d, "host"), inputs)
+                        for _label, d, inputs in cases])
+    log(f"users (c) host route: {len(cases)} runs in one process, "
+        f"{host_s:.1f}s")
+    for label, d, inputs in cases:
+        card = os.path.join(d, "card")
+        run_ = run_in_process(card, inputs)
+        same_outputs(card, os.path.join(d, "host"), label,
+                     pacbio="-P" in inputs)
+        launches = run_["launches"]
+        if os.path.exists(os.path.join(card, ARTIFACTS[0])) and min(
+                launches["chain_rows"], launches["poa_fwd"]) <= 0:
+            raise AssertionError(f"{label}: launches {launches}")
+        log(f"users (c) {label}: byte-identical to the host route; "
+            f"launches {launches}; wall {run_['seconds']:.1f}s")
+    label, d, inputs = cases[0]
+    card = os.path.join(d, "card")
+    for name in ARTIFACTS[3:5]:
+        os.remove(os.path.join(card, name))
+    run_ = run_in_process(card, [*inputs, "-M", "FQ"])
+    same_outputs(card, os.path.join(d, "host"), f"{label} -M FQ")
+    log(f"users (c) {label}, resumed with -M FQ (.quant and .tpm removed): "
+        f"byte-identical to the host route; launches {run_['launches']}")
+    gates = evaluate_adversarial(os.path.join(d2, "card"), truth)
+    if not (gates["isoform_recall"] == gates["junction_recall"] == 1.0
+            and not gates["pseudogene_false_calls"]
+            and gates["read_purity"] >= 0.95
+            and gates["n_out_isoforms"] == len(truth["isoforms"])):
+        raise AssertionError(f"config-2's gates on the card: {gates}")
+    log(f"users (c) config-2's gates on the card: isoform recall "
+        f"{gates['isoform_recall']}, junction recall "
+        f"{gates['junction_recall']}, pseudogene calls "
+        f"{gates['pseudogene_false_calls']}, read purity "
+        f"{gates['read_purity']}, {gates['n_out_isoforms']} isoforms of "
+        f"{len(truth['isoforms'])}")
+    # --external_sam: the card's route writes a SAM of the two-sample
+    # dataset; the host route and the card's route run from it
+    first = os.path.join(d, "sam")
+    genome, ann, fofn = inputs[1], inputs[3], inputs[5]
+    run_pipeline(first, genome, ann, fofn, PipelineConfig(
+        align=PortAlign(emit_sam=True), poa=PoaConfig(backend="device")),
+        device=device)
+    sam = os.path.join(first, "tmp", "mm2Alignments.sam")
+    ext = [*inputs, "--external_sam", sam]
+    host_runs([(os.path.join(d, "ext_host"), ext)])
+    run_ = run_in_process(os.path.join(d, "ext_card"), ext)
+    same_outputs(os.path.join(d, "ext_card"), os.path.join(d, "ext_host"),
+                 "--external_sam")
+    same_outputs(os.path.join(d, "ext_card"), os.path.join(d, "host"),
+                 "--external_sam against the aligned run")
+    log(f"users (c) --external_sam (the card's SAM of the {label}): the "
+        f"card's and the host route's runs from it byte-identical, and to "
+        f"the aligned run; launches {run_['launches']}")
+
+
+def users_phase(tmp, device) -> None:
+    """Phase 9, (a) to (c)."""
+    with timed("phase 9 (a) config-3"):
+        config3_phase(tmp, device)
+    with timed("phase 9 (b) 300 Mbp"):
+        scale_phase(tmp, device)
+    with timed("phase 9 (c) small cases"):
+        small_cases_phase(tmp, device)
+
+
 def chain_only(device) -> None:
     """--chain-only: the chain's sets and the first read batch's chain
     figures, nothing else; the 512-segment set comes from CHAIN_SEED, so
@@ -2119,7 +2515,7 @@ def chain_only(device) -> None:
     inside another tree of the port, it times that tree's chain route."""
     check_chain_sets(np.random.default_rng(CHAIN_SEED), device, reps=20)
     with tempfile.TemporaryDirectory() as tmp:
-        make_dataset(tmp, **DATASET)
+        TOOL.make_dataset_files(tmp, **DATASET)
         reads = [(nm, sq) for nm, sq, _q in
                  read_fastx(os.path.join(tmp, "reads.fasta"))]
         aligner = TorchSpliceAligner(
@@ -2162,17 +2558,21 @@ def main(argv) -> None:
         return
 
     rng = np.random.default_rng(0)
-    errs = {"dp_fused": max(check_dp_random(rng, device),
-                            check_dp_layouts(device)),
-            "chain_rows": check_chain_sets(rng, device)}
-    t0 = time.time()
-    (errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"]), case_a = \
-        check_poa_cases(rng, device)
-    log(f"poa: cases (a)-(f) {time.time() - t0:.1f}s")
+    errs = {}
+    with timed("phase 3 dp random"):
+        errs["dp_fused"] = check_dp_random(rng, device)
+    with timed("phase 3 dp layouts"):
+        errs["dp_fused"] = max(errs["dp_fused"], check_dp_layouts(device))
+    with timed("phase 3 chain sets"):
+        errs["chain_rows"] = check_chain_sets(rng, device)
+    with timed("phase 3 poa cases (a)-(f)"):
+        (errs["poa_fwd"], errs["poa_walk"], errs["poa_sweep"]), case_a = \
+            check_poa_cases(rng, device)
 
+    log(f"seconds: phases 1-3 {time.time() - t_start:.1f}")
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        n_reads = make_dataset(tmp, **DATASET)
+        t_phase4 = t0 = time.time()
+        n_reads = TOOL.make_dataset_files(tmp, **DATASET)
         log(f"dataset: {n_reads} reads, {DATASET['genome_len']} bp genome, "
             f"{DATASET['n_genes']} genes ({time.time() - t0:.1f}s)")
         inputs = ["-G", os.path.join(tmp, "genome.fasta"),
@@ -2182,12 +2582,8 @@ def main(argv) -> None:
         # the comparison run: the port's host route, in a process of its
         # own that never initialises CUDA
         ref_dir = os.path.join(tmp, "host")
-        t0 = time.time()
-        run([sys.executable, "-m", "mandalorion_tpu_torch.pipeline.cli",
-             "-p", ref_dir, *inputs, "--chain_backend", "native",
-             "--dp_backend", "numpy", "--consensus_backend", "native",
-             "--device", "cpu"])
-        host_s = time.time() - t0
+        host_s = host_runs([(ref_dir, inputs)])
+        log(f"seconds: phase 4 host route {host_s:.1f}")
 
         reads = [(nm, sq) for nm, sq, _q in
                  read_fastx(os.path.join(tmp, "reads.fasta"))]
@@ -2195,7 +2591,8 @@ def main(argv) -> None:
             fastx_to_dict(os.path.join(tmp, "genome.fasta")),
             device=device)
         batch = max(aligner.cfg.batch_reads, -(-len(reads) // 3))
-        measured = check_first_batch(aligner, reads[:batch], device)
+        with timed("phase 4 first batch"):
+            measured = check_first_batch(aligner, reads[:batch], device)
 
         ref = artifact_bytes(ref_dir)
         ref_t = stage_seconds(ref_dir)
@@ -2251,15 +2648,25 @@ def main(argv) -> None:
             f"chunk {min(sizes)}..{max(sizes)} (mean "
             f"{sum(sizes) / len(sizes):.1f}), (n_cap, W) classes {classes}; "
             f"host route D_define {ref_t['D_define']:.2f} s")
-        measured.update(check_poa_main_path(stats.largest, device))
-        mesh_phase(tmp, inputs, ref, by_steps, aligner, reads,
-                   stats.largest, device)
-        mixed_phase(tmp, inputs, ref, by_steps, aligner, reads[:batch],
-                    n_reads, device)
-        no_native_phase(tmp, inputs, ref, ref_t, by_steps, aligner,
-                        reads[:batch], n_reads, case_a, device)
+        with timed("phase 4 largest chunk"):
+            measured.update(check_poa_main_path(stats.largest, device))
+        log(f"seconds: phase 4 {time.time() - t_phase4:.1f}")
+        with timed("the smaller slice"):
+            s_inputs, s_ref, s_ref_t, s_turn, s_reads = small_slice(tmp)
+        with timed("phase 5 mesh"):
+            mesh_phase(tmp, s_inputs, s_ref, s_turn, aligner, reads,
+                       stats.largest, device)
+        with timed("phase 6 mixed"):
+            mixed_phase(tmp, s_inputs, s_ref, s_turn, aligner,
+                        reads[:batch], s_reads, device)
+        with timed("phase 8 no native"):
+            no_native_phase(tmp, s_inputs, s_ref, s_ref_t, s_turn, aligner,
+                            reads[:batch], s_reads, case_a, device)
         del aligner, reads
-        trace_phase(tmp, inputs, ref, by_steps)
+        with timed("phase 7 trace"):
+            trace_phase(tmp, s_inputs, s_ref, s_turn)
+    with tempfile.TemporaryDirectory() as tmp, timed("phase 9 users"):
+        users_phase(tmp, device)
 
     for banned in ("jax", "mandalorion_tpu"):
         if banned in sys.modules:

@@ -84,6 +84,16 @@ CHAIN_BACKENDS = ("device", "native")
 DP_BACKENDS = ("device", "rowscan", "numpy")
 
 
+def genome_tensor(codes: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The genome codes on `device`. A writable array is shared on the CPU
+    and copied once to a card; a read-only one (a directory index cache,
+    memory-mapped) is copied first, so that no tensor aliases the
+    mapping."""
+    if not codes.flags.writeable:
+        codes = np.array(codes)
+    return torch.from_numpy(codes).to(device)
+
+
 def align_backends(cfg) -> Tuple[str, str]:
     """cfg's (chain_backend, dp_backend); ValueError on a name the port
     does not know."""
@@ -714,8 +724,7 @@ class TorchSpliceAligner(SpliceAligner):
         in the reference)."""
         align_backends(self.cfg)
         self.device = device
-        # on the CPU this shares the index's numpy buffer
-        self.genome_codes = torch.from_numpy(self.index.seq_codes).to(device)
+        self.genome_codes = genome_tensor(self.index.seq_codes, device)
         self._genome_on = {device: self.genome_codes}
         self._genome()
         mesh = pipeline_mesh()
@@ -733,8 +742,8 @@ class TorchSpliceAligner(SpliceAligner):
             return self.genome_codes
         for dev in mesh.distinct_devices():
             if dev not in self._genome_on:
-                self._genome_on[dev] = torch.from_numpy(
-                    self.index.seq_codes).to(dev)
+                self._genome_on[dev] = genome_tensor(self.index.seq_codes,
+                                                     dev)
         return self._genome_on
 
     def _native_picks(self, reads: Sequence[Tuple[str, str]]) -> list:

@@ -141,6 +141,40 @@ def test_trace_reader_imports_neither_jax_nor_the_jax_package():
     assert not tops & FORBIDDEN, tops
 
 
+def test_config_tool_imports_neither_jax_nor_the_jax_package():
+    """tools/run_configs_torch.py, which chip_smoke.py loads on the card,
+    imports neither jax nor mandalorion_tpu, lazy imports included, and
+    names neither in a string it hands to a subprocess; loaded and used
+    to make a dataset in a fresh interpreter, it leaves both out of
+    sys.modules."""
+    path = os.path.join(ROOT, "tools", "run_configs_torch.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    tops = _imported_tops(tree)
+    assert {"numpy", "subprocess"} <= tops
+    assert not tops & FORBIDDEN, tops
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not re.search(r"\b(jax|jaxlib)\b|mandalorion_tpu\b(?!_)",
+                                 node.value), node.value
+    code = ("import importlib.util, sys, tempfile\n"
+            f"spec = importlib.util.spec_from_file_location('t', {path!r})\n"
+            "t = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(t)\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    t.two_sample(d)\n"
+            "    t.make_dataset_files(d, n_genes=2, n_reads_per_gene=2,\n"
+            "                         genome_len=20_000)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mandalorion_tpu'))\n"
+            "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
