@@ -187,7 +187,18 @@ each run of a slice prints its wall seconds.
    substituted), two chromosomes with junk reads, all junk (no isoform file
    on either route), config-2's dataset with its gates, and
    `--external_sam` from the card's SAM through both routes.
-10. one JSON line with every kernel, the nvidia-smi line, then the result
+10. bench, after the users' phase: `python3 bench_torch.py --smoke` in a
+   process of its own (one timed attempt a route in each section:
+   bench.py's two small datasets, its POA workload and poa_batch at 64
+   isoforms; not config-3, which phase 9 (a) runs): its last line must
+   parse as JSON with every section; each pipeline section (value,
+   star_engine, device_path) compared a card and a host run (the bench
+   raises when their seven files differ) and reports the seven files'
+   sha256; the launch counts must be what each section reaches: dp and
+   chain and no POA kernel in value and star_engine, dp, chain, forward
+   and step walk in device_path, the forward once a round and the step
+   walk in poa and poa_batch, no record walk anywhere.
+11. one JSON line with every kernel, the nvidia-smi line, then the result
    line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Processes: the script adopts every process it starts, directly or not
@@ -2508,6 +2519,61 @@ def users_phase(tmp, device) -> None:
         small_cases_phase(tmp, device)
 
 
+# phase 10: the kernels each section of bench_torch.py --smoke must launch
+# (positive) and must not (zero)
+BENCH_LAUNCHES = {
+    "value": (("dp_fused", "chain_rows"), ("poa_fwd", "poa_walk")),
+    "star_engine": (("dp_fused", "chain_rows"), ("poa_fwd", "poa_walk")),
+    "device_path": (("dp_fused", "chain_rows", "poa_fwd", "poa_walk"), ()),
+    "poa": (("poa_fwd", "poa_walk"), ("dp_fused", "chain_rows")),
+    "poa_batch": (("poa_fwd", "poa_walk"), ("dp_fused", "chain_rows")),
+}
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase() -> None:
+    """Phase 10: bench_torch.py --smoke in a process of its own, its JSON
+    line held to what each section must show."""
+    out = run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+               "--smoke"], timeout=BENCH_TIMEOUT_S)
+    res = json.loads(out.strip().splitlines()[-1])
+    sections = {"value": res, "star_engine": res["star_engine"],
+                "device_path": res["device_path"], "poa": res["poa"],
+                "poa_batch": res["poa_batch"]["64"]}
+    for name, sec in sections.items():
+        positive, zero = BENCH_LAUNCHES[name]
+        got = sec["launches"]
+        if min(got[k] for k in positive) <= 0 or any(
+                got[k] for k in (*zero, "poa_sweep")):
+            raise AssertionError(f"bench {name}: launches {got}")
+        if name in ("value", "star_engine", "device_path"):
+            labels = {a["label"] for a in res["attempts"][name]}
+            if set(sec["artifacts_sha256"]) != set(ARTIFACTS) \
+                    or not {"card 0", "host 0"} <= labels:
+                raise AssertionError(f"bench {name}: files "
+                                     f"{sorted(sec['artifacts_sha256'])}, "
+                                     f"runs {sorted(labels)}")
+    batch = sections["poa_batch"]
+    if batch["launches"]["poa_fwd"] != batch["chunks"] \
+            or batch["problems_per_chunk"] != [64, 64]:
+        raise AssertionError(f"bench poa_batch: {batch['chunks']} chunks of "
+                             f"{batch['problems_per_chunk']} problems, "
+                             f"launches {batch['launches']}")
+    log(f"bench: value {res['value']:.1f} reads/s on the card, host route "
+        f"{res['host_same_workload']['reads_per_s']:.1f}; star_engine "
+        f"{res['star_engine']['reads_per_s']:.1f} | "
+        f"{res['star_engine']['host_same_workload']['reads_per_s']:.1f}; "
+        f"device_path {res['device_path']['reads_per_s']:.1f} | "
+        f"{res['device_path']['host_same_workload']['reads_per_s']:.1f}; "
+        f"poa {res['poa']['bases_per_s_device']:.0f} bases/s on the card, "
+        f"{res['poa']['bases_per_s_host']:.0f} native; poa_batch (64) "
+        f"{batch['bases_per_s_device']['median']:.0f} | "
+        f"{batch['bases_per_s_native']['median']:.0f}; the card's files "
+        f"byte-identical to the host route's in each pipeline section; "
+        f"cold_kind {res['cold_kind']}; the bench's own "
+        f"{res['total_s']:.1f} s")
+
+
 def chain_only(device) -> None:
     """--chain-only: the chain's sets and the first read batch's chain
     figures, nothing else; the 512-segment set comes from CHAIN_SEED, so
@@ -2667,6 +2733,8 @@ def main(argv) -> None:
             trace_phase(tmp, s_inputs, s_ref, s_turn)
     with tempfile.TemporaryDirectory() as tmp, timed("phase 9 users"):
         users_phase(tmp, device)
+    with timed("phase 10 bench"):
+        bench_phase()
 
     for banned in ("jax", "mandalorion_tpu"):
         if banned in sys.modules:

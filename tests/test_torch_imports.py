@@ -132,6 +132,43 @@ def test_chip_smoke_imports_only_the_port():
     assert n_calls >= 2
 
 
+def test_bench_torch_imports_only_the_port():
+    """bench_torch.py, the port's bench, imports the port and never the
+    JAX package, jax or tests/synthdata.py, lazy imports included, and
+    names none of them in a string it hands to a subprocess; imported in
+    a fresh interpreter, it leaves jax and mandalorion_tpu out of
+    sys.modules."""
+    with open(os.path.join(ROOT, "bench_torch.py")) as fh:
+        tree = ast.parse(fh.read())
+    tops = _imported_tops(tree)
+    assert {"mandalorion_tpu_torch", "torch", "numpy"} <= tops
+    assert not tops & (FORBIDDEN | {"synthdata"}), tops
+    module_name = re.compile(r"\b(mandalorion_tpu|jax|jaxlib|synthdata)\b")
+    launchers = {"run", "Popen", "check_output", "check_call", "call"}
+    n_calls = 0
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = getattr(node.func, "id", getattr(node.func, "attr", None))
+        if name not in launchers:
+            continue
+        n_calls += 1
+        for arg in ast.walk(node):
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                assert not module_name.search(arg.value), arg.value
+    assert n_calls >= 2
+    code = ("import sys\n"
+            "import bench_torch\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mandalorion_tpu', 'synthdata'))\n"
+            "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_trace_reader_imports_neither_jax_nor_the_jax_package():
     """tools/trace_breakdown.py, which chip_smoke.py loads on the card,
     imports neither jax nor mandalorion_tpu, lazy imports included."""

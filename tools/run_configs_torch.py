@@ -41,6 +41,7 @@ makers' own, in their order.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -510,6 +511,52 @@ def stage_seconds(out_dir: str) -> dict:
                  if line.strip() and not line.startswith("stage"))}
 
 
+# polls VmRSS of the process named by argv[1] every 50 ms; prints a line
+# when it runs, and on SIGTERM the peak in bytes
+RSS_SAMPLER = r"""
+import signal, sys, time
+path, peak = f"/proc/{sys.argv[1]}/status", 0
+def sample():
+    global peak
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                peak = max(peak, int(line.split()[1]) * 1024)
+def stop(*_):
+    sample()
+    print(peak, flush=True)
+    sys.exit(0)
+signal.signal(signal.SIGTERM, stop)
+sample()
+print("sampling", flush=True)
+while True:
+    time.sleep(0.05)
+    sample()
+"""
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """Yields a dict whose `peak_rss_bytes`, after the block, is this
+    process's peak RSS over the block, VmRSS sampled every 50 ms by a
+    child process: a thread would keep the pipeline from forking its
+    workers, and getrusage's ru_maxrss can neither be reset nor trusted
+    in a child (Linux keeps across execve the size of the address space
+    that fork copied)."""
+    out: dict = {}
+    proc = subprocess.Popen([sys.executable, "-c", RSS_SAMPLER,
+                             str(os.getpid())], stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        if not proc.stdout.readline():
+            raise RuntimeError("the RSS sampler did not start")
+        yield out
+    finally:
+        proc.terminate()
+        text, _err = proc.communicate(timeout=10)
+    out["peak_rss_bytes"] = int(text.split()[-1])
+
+
 def route_child(cli_args) -> None:
     """The `route` subcommand: one run of the port's CLI in this process,
     then one JSON line of its resources."""
@@ -524,9 +571,10 @@ def route_child(cli_args) -> None:
                     poa_sweep=poa.POA_SWEEP_LAUNCHES)
     for counter in counters.values():
         counter.count = 0
-    t0 = time.time()
-    rc = cli.main(cli_args)
-    seconds = time.time() - t0
+    with rss_peak() as rss:
+        t0 = time.time()
+        rc = cli.main(cli_args)
+        seconds = time.time() - t0
     peak_dev = None
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -534,8 +582,7 @@ def route_child(cli_args) -> None:
     print(json.dumps({
         "rc": rc, "seconds": seconds, "peak_device_bytes": peak_dev,
         "launches": {k: c.count for k, c in counters.items()},
-        "peak_rss_bytes": resource.getrusage(
-            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "peak_rss_bytes": rss["peak_rss_bytes"],
         "peak_child_rss_bytes": resource.getrusage(
             resource.RUSAGE_CHILDREN).ru_maxrss * 1024}), flush=True)
     if rc != 0:
