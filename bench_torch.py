@@ -8,9 +8,9 @@ Run from the repository root, no install needed. Without a CUDA card it
 exits non-zero, naming the missing card, and prints no result: there is
 no CPU fallback. Everything but the last line goes to stderr; the last
 line of stdout is one JSON object. `--smoke` runs one timed attempt a
-route in each section and no warmup (device_path keeps its cold
-attempt), poa_batch at 64 isoforms only, and neither users_size nor
-trace: the quick check that the harness still runs on the card.
+route in each section and no warmup (device_path keeps its cold attempt
+on each route), poa_batch at 64 isoforms only, and neither users_size
+nor trace: the quick check that the harness still runs on the card.
 
 Protocol (bench.py's, made the card's own):
 - the card's name, count and power limit (nvidia-smi) and torch's CUDA
@@ -25,23 +25,25 @@ Protocol (bench.py's, made the card's own):
 - a pipeline section runs the card route in this process (the CLI's
   `main`, which calls `pipeline.stages.run_pipeline`, with `--device
   cuda`) and the host route (`--device cpu --chain_backend native
-  --dp_backend numpy --consensus_backend native`) in a child process
-  that never touches CUDA (`tools/run_configs_torch.py`'s `run_route`, a
-  fresh interpreter), in turns: the section's warmups on the card, then
-  card, host, card, host. A run's reads/s is its own, from its
-  tmp/timing.tsv (the APDFQ stages, index build included), with its wall
-  seconds beside it. Each figure is the median of the timed attempts,
-  with the whole spread;
+  --dp_backend numpy --consensus_backend native`) in one child process a
+  section that never touches CUDA (`tools/run_configs_torch.py`'s `serve`
+  through its `RouteServer`), so both routes run warm: the section's
+  warmups on each route in turns, then card, host, card, host. The child
+  checks before each run that the pipeline may fork its pools, and
+  reports the forks; it ends with the section, its exit code checked. A
+  run's reads/s is its own, from its tmp/timing.tsv (the APDFQ stages,
+  index build included), with its wall seconds beside it. Each figure is
+  the median of the timed attempts, with the whole spread;
 - before each attempt the 1-minute loadavg is recorded and the launch
   counters and the card's peak memory are reset; beside each timed
-  window child processes sample the run's process's RSS every 50 ms
-  (`rss_peak` of tools/run_configs_torch.py, which the host route's run
-  takes too) and the SM clock, power draw and temperature every 100 ms
+  window child processes sample the run's process's RSS and its largest
+  worker's every 50 ms (`rss_peak` of tools/run_configs_torch.py, which
+  the host route's child takes around each run) and the SM clock, power draw and temperature every 100 ms
   (nvidia-smi): a thread would keep the pipeline from forking its
   workers;
 - the correctness gate: every run's seven files (the six
-  `_artifact_bytes` files and `.clean.genes`) must be byte-identical to
-  the host route's first run; the first difference raises, naming the
+  `_artifact_bytes` files and `.clean.genes`), warmups included, must be
+  byte-identical to the host route's first run; the first difference raises, naming the
   section, the run and the file. The POA sections hold the device
   backend's consensi to the native engine's, string for string;
 - each section has a time limit, which raises when it runs out, and no
@@ -51,12 +53,12 @@ Protocol (bench.py's, made the card's own):
 Sections (keys as in bench.py where one maps):
 - value (the headline): bench.py's dataset, `make_dataset`'s defaults (8
   genes x 250 reads, 2,000 reads on 200 kb), on the CLI's defaults (chain
-  and DP on the card, consensus auto, the native engine); 2 warmups,
-  then 5 attempts a route;
+  and DP on the card, consensus auto, the native engine); 2 warmups and
+  5 attempts a route;
 - star_engine: the same with `--consensus_engine star`, 3 a route;
 - device_path: bench.py's 4 genes x 75 reads on 120 kb with
   `--consensus_backend device`, every hand kernel of the default walk on
-  the path; the cold attempt, then 3 a route; `link` beside it;
+  the path; the cold attempt and 3 a route; `link` beside it;
 - trace: one more device_path run outside the timed ones, under
   MANDO_TPU_PROFILE, read by tools/trace_breakdown.py: per stage the idle
   share, the five largest device operations and the three longest idle
@@ -71,7 +73,7 @@ Sections (keys as in bench.py where one maps):
   walk ms by CUDA events; a warmup, then 3;
 - users_size: tools/run_config3.py's dataset in full (100 genes x 1,000
   reads on 50 Mbp) as two samples, genes 0-49 FASTA and 50-99 gzipped
-  FASTQ, with `--consensus_backend device`; a warmup, then 3 a route;
+  FASTQ, with `--consensus_backend device`; a warmup and 3 a route;
   peak device memory and peak RSS.
 Also `real_tool_fixtures`, as bench.py reports it, and
 `loadavg_per_attempt` in run order.
@@ -411,12 +413,17 @@ def card_run(out_dir: str, work: Workload, flags, device) -> dict:
 
 
 def host_run(out_dir: str, work: Workload, flags, device,
-             timeout: float) -> dict:
-    """One run of the host route in a fresh interpreter."""
+             server, label: str, timeout: float) -> dict:
+    """One run of the host route in the section's warm child `server`
+    (a `RouteServer`); raises unless the child, which never initialises
+    CUDA, forked the pipeline's pools."""
     with smi_window(device) as smi:
-        res = TOOL.run_route("host route", out_dir, work.inputs,
-                             [*TOOL.HOST_ROUTE, *flags], work.n_reads,
-                             timeout)
+        res = server.run(f"host route, {label}", out_dir, work.inputs,
+                         [*TOOL.HOST_ROUTE, *flags], work.n_reads, timeout)
+    if res["cuda_initialized"] or res["forks"] <= 0:
+        raise AssertionError(f"host route, {label}: CUDA initialised "
+                             f"{res['cuda_initialized']}, {res['forks']} "
+                             f"forks")
     return run_record(out_dir, work, route="host", wall_s=res["seconds"],
                       launches=res["launches"], peak_device_bytes=None,
                       peak_rss_bytes=res["peak_rss_bytes"],
@@ -424,33 +431,43 @@ def host_run(out_dir: str, work: Workload, flags, device,
                       smi=dict(smi) or None)
 
 
+# a pipeline section's runs: (record key, label prefix, route)
+WARMUPS = (("warmup", "warmup", "card"),
+           ("host_warmup", "host warmup", "host"))
+TIMED = (("card", "card", "card"), ("host", "host", "host"))
+
+
 def pipeline_turns(section: str, tmp: str, work: Workload, device,
                    warmups: int, attempts: int) -> dict:
-    """The section's warmups on the card, then card and host in turns;
-    every run's seven files held to the first host run's. Returns the
-    records by route ('warmup', 'card', 'host') in run order, the host
-    route's files and their sha256."""
+    """The section's warmups on the card and on the host route in turns,
+    then card and host in turns, the host route in one warm child for
+    the section; every run's seven files held to the first host run's.
+    Returns the records by route ('warmup', 'host_warmup', 'card',
+    'host') in run order, the host route's files and their sha256."""
     card_flags, host_flags = ROUTES[section]
-    plan = [("warmup", i) for i in range(warmups)] + [
-        (route, i) for i in range(attempts) for route in ("card", "host")]
-    runs = {"warmup": [], "card": [], "host": []}
+    plan = [(step, i) for i in range(warmups) for step in WARMUPS] + [
+        (step, i) for i in range(attempts) for step in TIMED]
+    runs = {key: [] for key, _p, _r in WARMUPS + TIMED}
     blobs = {}
-    for route, i in plan:
-        label = f"{route} {i}"
-        out = os.path.join(tmp, section, f"{route}{i}")
-        load = os.getloadavg()[0]
-        if route == "host":
-            rec = host_run(out, work, host_flags, device, LIMIT_S[section])
-        else:
-            rec = card_run(out, work, card_flags, device)
-            check_launches(section, label, rec["launches"], device)
-        rec.update(label=label, loadavg=load)
-        runs[route].append(rec)
-        blobs[label] = TOOL.artifact_bytes(out)
-        shutil.rmtree(out)
-        log(f"{section}: {label}: {rec['reads_s']:.1f} reads/s (APDFQ), "
-            f"wall {rec['wall_s']:.2f} s, launches {rec['launches']}")
-    want = blobs["host 0"]
+    os.makedirs(os.path.join(tmp, section), exist_ok=True)
+    with TOOL.RouteServer(os.path.join(tmp, section, "host.log")) as server:
+        for (key, prefix, route), i in plan:
+            label = f"{prefix} {i}"
+            out = os.path.join(tmp, section, f"{key}{i}")
+            load = os.getloadavg()[0]
+            if route == "host":
+                rec = host_run(out, work, host_flags, device, server,
+                               f"{section} {label}", LIMIT_S[section])
+            else:
+                rec = card_run(out, work, card_flags, device)
+                check_launches(section, label, rec["launches"], device)
+            rec.update(label=label, loadavg=load)
+            runs[key].append(rec)
+            blobs[label] = TOOL.artifact_bytes(out)
+            shutil.rmtree(out)
+            log(f"{section}: {label}: {rec['reads_s']:.1f} reads/s (APDFQ), "
+                f"wall {rec['wall_s']:.2f} s, launches {rec['launches']}")
+    want = blobs["host warmup 0" if warmups else "host 0"]
     for label, got in blobs.items():
         for name in TOOL.ARTIFACTS:
             if got[name] != want[name]:
@@ -475,7 +492,7 @@ def brief(rec: dict) -> dict:
 def figures(runs: dict, work: Workload) -> dict:
     """A pipeline section's figures: reads/s of the card route (median of
     the timed attempts, the spread, the warmups), the host route's beside
-    them, and the median attempts' stage seconds."""
+    them (its warmups too), and the median attempts' stage seconds."""
     card, host = runs["card"], runs["host"]
     mid_card, mid_host = median_record(card), median_record(host)
     peaks = [r["peak_device_bytes"] for r in card]
@@ -483,6 +500,8 @@ def figures(runs: dict, work: Workload) -> dict:
         "reads_per_s": statistics.median(r["reads_s"] for r in card),
         "spread": [r["reads_s"] for r in card],
         "warmup_reads_per_s": [r["reads_s"] for r in runs["warmup"]],
+        "host_warmup_reads_per_s": [r["reads_s"]
+                                    for r in runs["host_warmup"]],
         "host_same_workload": {
             "reads_per_s": statistics.median(r["reads_s"] for r in host),
             "spread": [r["reads_s"] for r in host]},
@@ -490,13 +509,14 @@ def figures(runs: dict, work: Workload) -> dict:
             route: spread([r["module_a_reads_s"] for r in runs[route]])
             for route in ("card", "host")},
         "wall_s": {route: [r["wall_s"] for r in runs[route]]
-                   for route in ("warmup", "card", "host")},
+                   for route in ("warmup", "host_warmup", "card", "host")},
         "stages": {"card": mid_card["stages"], "host": mid_host["stages"]},
         "launches": mid_card["launches"],
         "peak_device_bytes": None if None in peaks else max(peaks),
         "reads": work.n_reads,
         "artifacts_sha256": runs["artifacts_sha256"],
-        "attempts": [brief(r) for route in ("warmup", "card", "host")
+        "attempts": [brief(r) for route in ("warmup", "host_warmup",
+                                            "card", "host")
                      for r in runs[route]],
     }
 

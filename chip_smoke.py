@@ -126,7 +126,15 @@ each run of a slice prints its wall seconds.
    route's, and the counters, set to 0 before each run, must show the
    chain kernel exactly when the chain is 'device', the DP kernel exactly
    when the DP is 'device', and the POA kernels always; stage seconds
-   beside turn 0's and peak device memory are printed.
+   beside turn 0's and peak device memory are printed; (c) an index
+   without its bucket table: bench.py's device_path dataset (4 genes x 75
+   reads on 120 kb) through the default device route with
+   `--consensus_backend device`, first with `--index_cache <dir>` (which
+   writes the cache), then on a copy of that cache without
+   bucket_lo.npy: the seven files must be byte-identical, the bucket-less
+   run must seed in numpy (no C seed stage call) and launch the chain and
+   DP kernels, and its cache must stay without the table; the two runs'
+   stage seconds are printed.
 7. trace (the stage profiler hook, MANDO_TPU_PROFILE), after the mixed
    routes: the smaller slice in this process, by steps and by records, each
    with MANDO_TPU_PROFILE set to a directory of its own, so that every
@@ -193,8 +201,9 @@ each run of a slice prints its wall seconds.
    isoforms; not config-3, which phase 9 (a) runs): its last line must
    parse as JSON with every section; each pipeline section (value,
    star_engine, device_path) compared a card and a host run (the bench
-   raises when their seven files differ) and reports the seven files'
-   sha256; the launch counts must be what each section reaches: dp and
+   raises when their seven files differ, and when the host route's warm
+   child did not fork its pools) and reports the seven files' sha256,
+   device_path after a cold run on each route; the launch counts must be what each section reaches: dp and
    chain and no POA kernel in value and star_engine, dp, chain, forward
    and step walk in device_path, the forward once a round and the step
    walk in poa and poa_batch, no record walk anywhere.
@@ -221,6 +230,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -1915,6 +1925,61 @@ def mixed_phase(tmp, inputs, ref, turn0, aligner, reads, n_reads,
     log(f"mixed: phase (a)-(b) passed, {time.time() - t_phase:.1f}s")
 
 
+# phase 6 (c): bench.py's device_path dataset
+BUCKETLESS_DATASET = dict(n_genes=4, n_reads_per_gene=75, genome_len=120_000)
+
+
+def bucketless_phase(tmp) -> None:
+    """Phase 6 (c): the device route on a directory index cache, then on
+    a copy of it without bucket_lo.npy, byte-identical."""
+    d = os.path.join(tmp, "bucketless")
+    n_reads = TOOL.make_dataset_files(d, **BUCKETLESS_DATASET)
+    inputs = ["-G", os.path.join(d, "genome.fasta"),
+              "-g", os.path.join(d, "ann.gtf"),
+              "-f", os.path.join(d, "reads.fasta")]
+    seeded = collections.Counter()
+    plain_seed_batch = TorchSpliceAligner.seed_batch
+
+    def seed_batch(self, reads):
+        seeded[self.index.bucket_lo is None] += 1
+        return plain_seed_batch(self, reads)
+
+    cache = os.path.join(d, "genome.idx")
+    bare = os.path.join(d, "bare.idx")
+    TorchSpliceAligner.seed_batch = seed_batch
+    try:
+        with_table = run_in_process(os.path.join(d, "table"), inputs,
+                                    flags=("--index_cache", cache))
+        shutil.copytree(cache, bare)
+        os.remove(os.path.join(bare, "bucket_lo.npy"))
+        without = run_in_process(os.path.join(d, "bare"), inputs,
+                                 flags=("--index_cache", bare))
+    finally:
+        TorchSpliceAligner.seed_batch = plain_seed_batch
+    got = artifact_bytes(os.path.join(d, "bare"))
+    want = artifact_bytes(os.path.join(d, "table"))
+    for name in ARTIFACTS:
+        if got[name] != want[name]:
+            raise AssertionError(f"bucket-less: {name} differs from the "
+                                 f"bucketed run's")
+    launches = without["launches"]
+    if min(launches["chain_rows"], launches["dp_fused"]) <= 0 \
+            or seeded[True] or not seeded[False] \
+            or os.path.exists(os.path.join(bare, "bucket_lo.npy")):
+        raise AssertionError(f"bucket-less: launches {launches}, C seed "
+                             f"stage calls {dict(seeded)} (True: without "
+                             f"the table)")
+    log(f"mixed (c) bucket-less index, {n_reads} reads: {len(ARTIFACTS)} "
+        f"artifacts byte-identical to the bucketed run; launches "
+        f"{launches} (bucketed: {with_table['launches']}); C seed stage "
+        f"calls 0 (bucketed: {seeded[False]}); wall "
+        f"{without['seconds']:.1f}s (bucketed: "
+        f"{with_table['seconds']:.1f}s)")
+    log("mixed (c) stage seconds, bucket-less | bucketed: " + ", ".join(
+        f"{k} {v:.2f} | {with_table['stages'][k]:.2f}"
+        for k, v in without["stages"].items()))
+
+
 # ------------------------------------------------------------ no native
 
 # phase 8's child: the slice's default device route through run_pipeline,
@@ -2548,8 +2613,10 @@ def bench_phase() -> None:
             raise AssertionError(f"bench {name}: launches {got}")
         if name in ("value", "star_engine", "device_path"):
             labels = {a["label"] for a in res["attempts"][name]}
+            runs = {"card 0", "host 0"} | ({"warmup 0", "host warmup 0"}
+                                           if name == "device_path" else set())
             if set(sec["artifacts_sha256"]) != set(ARTIFACTS) \
-                    or not {"card 0", "host 0"} <= labels:
+                    or not runs <= labels:
                 raise AssertionError(f"bench {name}: files "
                                      f"{sorted(sec['artifacts_sha256'])}, "
                                      f"runs {sorted(labels)}")
@@ -2725,6 +2792,8 @@ def main(argv) -> None:
         with timed("phase 6 mixed"):
             mixed_phase(tmp, s_inputs, s_ref, s_turn, aligner,
                         reads[:batch], s_reads, device)
+        with timed("phase 6 (c) bucket-less"):
+            bucketless_phase(tmp)
         with timed("phase 8 no native"):
             no_native_phase(tmp, s_inputs, s_ref, s_ref_t, s_turn, aligner,
                             reads[:batch], s_reads, case_a, device)

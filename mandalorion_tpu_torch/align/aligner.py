@@ -27,12 +27,15 @@ reference's `SpliceAligner.map_batch` does:
 - chain 'native' with DP 'numpy': the host class's fused C call a read
   (on the replicated index).
 
-Under MANDO_TPU_NO_NATIVE (no native library loaded) every route runs the
-reference's Python staging on the numpy twins: seeding an orientation at
-a time (`_minimizers_numpy`, `GenomeIndex.lookup`'s numpy branch,
-`collapse_anchors`), `_fill`, the DP problem list through the DP backend
-(`solve_dp_numpy` for 'numpy'), `_emit` (`_runs_to_psl_numpy`). Chain
-'device' then runs every candidate of the batch through
+Under MANDO_TPU_NO_NATIVE (no native library loaded), and on an index
+without a bucket table (`bucket_lo` None: a caller's own GenomeIndex, or
+a directory index cache without bucket_lo.npy), every route runs the
+reference's Python staging (`numpy_seeding`): seeding an orientation at
+a time (`minimizers`, `GenomeIndex.lookup`'s numpy branch,
+`collapse_anchors`), `_fill`, the DP problem list through the DP backend,
+`_emit`; without the library the numpy twins stand in for the C stages
+(`solve_dp_numpy` for 'numpy', `_runs_to_psl_numpy`). Chain 'device'
+then runs every candidate of the batch through
 `chain_kernel.chain_batch_segments` (the reference's
 `_chain_batch_device`); chain 'native' runs `chain_segments` a
 candidate on the host. The kernels stay on `device`.
@@ -121,17 +124,14 @@ class _Pending:
 
 class SpliceAligner:
     """Genome-indexed splice aligner on the host (native C++ seeding,
-    chaining and DP; their numpy twins and the Python staging under
-    MANDO_TPU_NO_NATIVE). Thread the same instance through batches."""
+    chaining and DP; the Python staging under `numpy_seeding`). Thread
+    the same instance through batches."""
 
     def __init__(self, genome: Dict[str, str],
                  cfg: Optional[AlignConfig] = None):
         self.cfg = cfg or AlignConfig()
         self.index = cached_index(genome, self.cfg.kmer, self.cfg.window,
                                   self.cfg.index_cache)
-        if self.index.bucket_lo is None:
-            raise ValueError("the genome index has no bucket table "
-                             "(bucket_lo): rebuild the index cache")
         # minimap2 -f analogue: raise the seed occurrence cap to the
         # index's top-frequency quantile so repeat/tandem regions seed
         self.max_occ = frequency_occ_cap(self.index, self.cfg.occ_frac,
@@ -147,22 +147,28 @@ class SpliceAligner:
 
     # ------------------------------------------------------------ seeding
 
+    def numpy_seeding(self) -> bool:
+        """Whether module A seeds in numpy and stages in Python: this
+        process has no native library (MANDO_TPU_NO_NATIVE), or this
+        index has no bucket table, which every native seeding call
+        reads."""
+        return load_native() is None or self.index.bucket_lo is None
+
     def _chain_both(self, codes: np.ndarray):
         """Best chain over both read orientations (forward wins score
         ties): (chain, strand, chrom_idx, oriented query codes), or None
         when neither orientation chains. The native seed + chain in one
-        call, or under MANDO_TPU_NO_NATIVE the numpy seeding
+        call, or under `numpy_seeding` the numpy seeding
         (`_orientation_segments`) chained on the host (`_host_pick`)."""
+        if self.numpy_seeding():
+            return self._host_pick(codes, *self._orientation_segments([codes]))
         cfg = self.cfg
         idx = self.index
-        res = native_seed_chain2(
+        q0, qe, t0, te, _score, ci, strand = native_seed_chain2(
             codes, cfg.kmer, cfg.window, self.max_occ, 100,
             idx.sorted_hashes, idx.bucket_lo, idx.bucket_bits,
             idx.sorted_positions, idx.chrom_offsets, cfg.min_intron,
             cfg.max_intron)
-        if res is None:
-            return self._host_pick(codes, *self._orientation_segments([codes]))
-        q0, qe, t0, te, _score, ci, strand = res
         if strand < 0 or len(q0) == 0:
             return None
         chain = [Segment(int(a), int(b), int(c), int(d))
@@ -533,9 +539,9 @@ class SpliceAligner:
         """Align a batch of (name, seq) reads; primary alignments only.
         One fused C call per read does seed+chain, gap fill (splice-point
         search + affine DP), run assembly and extended-PSL emission; under
-        MANDO_TPU_NO_NATIVE the Python staging (`_native_picks`,
-        `_map_picks`) on the numpy twins."""
-        if load_native() is None:
+        `numpy_seeding` the Python staging (`_native_picks`,
+        `_map_picks`)."""
+        if self.numpy_seeding():
             return self._map_picks(reads, self._native_picks(reads))
         out: List[PslRecord] = []
         for name, seq in reads:
@@ -568,8 +574,8 @@ class SpliceAligner:
         """Like map_batch but returns raw (name, strand, q_codes, runs)
         tuples, the op-level interface used by the star consensus
         (poa/star.py); one fused C call per read, or under
-        MANDO_TPU_NO_NATIVE the Python staging."""
-        if load_native() is None:
+        `numpy_seeding` the Python staging."""
+        if self.numpy_seeding():
             return self._runs_of_picks(reads, self._native_picks(reads))
         out = []
         for name, seq in reads:
@@ -826,6 +832,10 @@ class TorchSpliceAligner(SpliceAligner):
         prepares and packs its anchors (native_stage_seed_anchors): the
         same tuple."""
         require_native("the C seed stage (TorchSpliceAligner.seed_batch)")
+        if self.index.bucket_lo is None and self._sharded is None:
+            raise ValueError("the C seed stage (TorchSpliceAligner."
+                             "seed_batch) reads the index's bucket table "
+                             "(bucket_lo), which this index lacks")
         cfg = self.cfg
         code_list = [encode(seq) for _name, seq in reads]
         read_off = np.zeros(len(reads) + 1, np.int64)
@@ -939,7 +949,7 @@ class TorchSpliceAligner(SpliceAligner):
         alignments only, byte-identical to the host route."""
         chain, dp = align_backends(self.cfg)
         if chain == "device":
-            if load_native() is None:
+            if self.numpy_seeding():
                 return self._map_picks(reads, self._segment_picks(reads))
             return self._map_staged(reads)
         if dp == "numpy":
@@ -952,7 +962,7 @@ class TorchSpliceAligner(SpliceAligner):
         class's fused C call for 'native' with 'numpy')."""
         chain, dp = align_backends(self.cfg)
         if chain == "device":
-            picks = (self._segment_picks(reads) if load_native() is None
+            picks = (self._segment_picks(reads) if self.numpy_seeding()
                      else self._device_picks(reads))
         elif dp == "numpy":
             return super().map_batch_runs(reads)

@@ -70,11 +70,13 @@ class GenomeIndex:
         anchor budget keeps the lowest-occurrence seeds when a read seeds
         mostly in high-copy repeats (identical semantics to the native
         build_segments path, minimizers.cpp ANCHOR_BUDGET). Uses the
-        native bucketed binary search, or numpy's searchsorted under
-        MANDO_TPU_NO_NATIVE (the same ranges)."""
+        native bucketed binary search, or numpy's searchsorted (the same
+        ranges) on an index without a bucket table or under
+        MANDO_TPU_NO_NATIVE."""
         from mandalorion_tpu_torch.native import native_lookup_ranges
-        res = native_lookup_ranges(self.sorted_hashes, self.bucket_lo,
-                                   self.bucket_bits, hashes)
+        res = (native_lookup_ranges(self.sorted_hashes, self.bucket_lo,
+                                    self.bucket_bits, hashes)
+               if self.bucket_lo is not None else None)
         if res is not None:
             lo, hi = res
         else:
@@ -103,14 +105,21 @@ class GenomeIndex:
         """Fused native seeding for one read orientation: minimizers ->
         lookup -> per-chromosome diagonal collapse, in a single C call.
         Returns [(chrom_idx, [Segment, ...]), ...] in ascending chrom
-        order (segments in (diag, t) order, matching collapse_anchors)."""
+        order (segments in (diag, t) order, matching collapse_anchors),
+        or None on an index without a bucket table or under
+        MANDO_TPU_NO_NATIVE."""
         from mandalorion_tpu_torch.align.chain import Segment
         from mandalorion_tpu_torch.native import native_seed_segments
 
-        chrom, qs, qe, ts, te, na, cov = native_seed_segments(
+        if self.bucket_lo is None:
+            return None
+        res = native_seed_segments(
             codes, self.kmer, self.window, max_occ, merge_gap,
             self.sorted_hashes, self.bucket_lo, self.bucket_bits,
             self.sorted_positions, self.chrom_offsets)
+        if res is None:
+            return None
+        chrom, qs, qe, ts, te, na, cov = res
         out = []
         i = 0
         n = len(chrom)

@@ -124,7 +124,13 @@ def shard_index_arrays(index, n_shards: int
     equal hashes never straddle shards (a hash's occurrence count, the
     max_occ repeat filter, stays exact on its owner shard). Returns
     (hashes (n, S) uint64, positions (n, S) int64, lens (n,) int32),
-    padded with the max-hash sentinel."""
+    padded with the max-hash sentinel. Raises on an index without a
+    bucket table, as the reference's split cannot take one either."""
+    if index.bucket_lo is None:
+        raise ValueError("index_backend 'sharded' splits the index at its "
+                         "bucket table (bucket_lo), which this index lacks: "
+                         "rebuild the index cache with it, or run the "
+                         "replicated index")
     total = len(index.sorted_hashes)
     cuts = [0]
     for i in range(1, n_shards):

@@ -4,7 +4,11 @@ plain versions; no figure here is a card's): its workloads are bench.py's
 and tools/bench_poa_kernel.py's, byte for byte; its POA section's
 consensi and its headline section's files equal the JAX package's on the
 same inputs (tolerance: none); a byte flipped in one route's output makes
-a section raise, naming the file; without a card it fails and prints no
+a section raise, naming the file; the host route's warm child (the
+`serve` subcommand of tools/run_configs_torch.py) writes the files of a
+fresh interpreter's run and of the JAX package's, never initialises
+CUDA, forks its pools on every run, and leaves no process behind when a
+run fails or outlives its limit; without a card it fails and prints no
 result."""
 
 import hashlib
@@ -12,6 +16,7 @@ import importlib.util
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -36,7 +41,7 @@ SMALL = dict(n_genes=2, n_reads_per_gene=10, genome_len=40_000)
 SMALL_POA = dict(n_iso=2, n_reads=4, length=300)
 HEADLINE_KEYS = {
     "metric", "value", "unit", "value_spread", "warmup_reads_per_s",
-    "host_same_workload", "module_a_reads_per_s", "wall_s", "stages",
+    "host_warmup_reads_per_s", "host_same_workload", "module_a_reads_per_s", "wall_s", "stages",
     "launches", "peak_device_bytes", "reads", "artifacts_sha256",
     "attempts"}
 
@@ -189,6 +194,98 @@ def test_a_flipped_byte_raises_naming_the_file(tmp_path, monkeypatch, route,
     with pytest.raises(AssertionError) as err:
         headline(tmp_path)
     assert f"value: {name} of the card 0 run differs" in str(err.value)
+
+
+def test_host_route_warms_up_like_the_card(tmp_path):
+    """One warmup a route, in turns, then one attempt a route: the host
+    route's warmup has its figures beside the card's, and every run's
+    files equal the first host run's (checked inside)."""
+    work = bench.dataset(str(tmp_path / "data"), 2, **SMALL)
+    out = bench.value_section(str(tmp_path), work, CPU, 1, 1)
+    assert set(out) == HEADLINE_KEYS
+    assert [a["label"] for a in out["attempts"]] == [
+        "warmup 0", "host warmup 0", "card 0", "host 0"]
+    assert len(out["warmup_reads_per_s"]) == 1
+    assert len(out["host_warmup_reads_per_s"]) == 1
+    assert out["host_warmup_reads_per_s"][0] > 0
+    assert {k: len(v) for k, v in out["wall_s"].items()} == {
+        "warmup": 1, "host_warmup": 1, "card": 1, "host": 1}
+
+
+def test_serve_child_runs_warm_like_a_fresh_interpreter(tmp_path):
+    """Two runs in one `serve` child: each forks the pipeline's pools and
+    leaves CUDA uninitialised, and their files equal `run_route`'s (a
+    fresh interpreter) and mandalorion_tpu's run_pipeline's, byte for
+    byte. The child ends with exit code 0 when its requests end."""
+    work = bench.dataset(str(tmp_path / "data"), 2, **SMALL)
+    flags = list(bench.TOOL.HOST_ROUTE)
+    answers = []
+    with bench.TOOL.RouteServer(str(tmp_path / "serve.log")) as server:
+        for i in range(2):
+            answers.append(server.run(f"warm {i}", str(tmp_path / f"warm{i}"),
+                                      work.inputs, flags, work.n_reads, 300))
+    assert server.proc.returncode == 0
+    for res in answers:
+        assert res["forks"] > 0 and res["threads"] == 1
+        assert res["cuda_initialized"] is False
+        assert res["peak_rss_bytes"] > 0 and res["peak_child_rss_bytes"] > 0
+        assert set(res["stages"]) == {"index_build", "A_alignment",
+                                      "P_parsing", "D_define", "F_filter",
+                                      "Q_quant"}
+    bench.TOOL.run_route("fresh", str(tmp_path / "fresh"), work.inputs,
+                         flags, work.n_reads, 300)
+    args = reference_parser().parse_args(["-p", str(tmp_path / "ref"),
+                                          *work.inputs])
+    reference_run(args.path, args.genome_sequence, args.genome_annotation,
+                  args.Consensus_reads, reference_config(args))
+    want = sha256_files(tmp_path / "ref")
+    for name in ("warm0", "warm1", "fresh"):
+        assert sha256_files(tmp_path / name) == want, name
+
+
+def live_in_group(pgid):
+    """The pids of the processes of group `pgid` that are not zombies."""
+    live = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            live.append(int(pid))
+    return live
+
+
+@pytest.mark.parametrize("case", ["a failed run", "over its limit"])
+def test_serve_child_failure_raises_naming_the_run(tmp_path, case):
+    """After a warm run, a run that fails, or that outlives a quarter of
+    the warm run's seconds (its RSS sampler alive), raises naming the
+    run; the child's whole process group is gone after the block."""
+    work = bench.dataset(str(tmp_path / "data"), 2, **SMALL)
+    flags = list(bench.TOOL.HOST_ROUTE)
+    inputs = list(work.inputs)
+    with pytest.raises(RuntimeError) as err:
+        with bench.TOOL.RouteServer(str(tmp_path / "serve.log")) as server:
+            warm = server.run("warm", str(tmp_path / "warm"), inputs, flags,
+                              work.n_reads, 300)
+            timeout, says = 300, "failed"
+            if case == "a failed run":
+                inputs[1] = str(tmp_path / "missing.fasta")
+            else:
+                timeout = warm["seconds"] / 4
+                says = f"did not end within {timeout} s"
+            server.run("the run under test", str(tmp_path / "out"), inputs,
+                       flags, work.n_reads, timeout)
+    assert str(err.value).startswith(f"the run under test {says}")
+    assert server.proc.returncode not in (None, 0)
+    for _ in range(100):
+        if not live_in_group(server.proc.pid):
+            break
+        time.sleep(0.1)
+    assert live_in_group(server.proc.pid) == []
 
 
 def test_main_without_a_card_fails_and_prints_no_result(monkeypatch,

@@ -32,6 +32,11 @@ routes' artifacts differ in a byte (the six `_artifact_bytes` files and
 recall 1.0, no pseudogene call, read purity >= 0.95), config-4's planted
 genes (each gives one isoform on its own chromosome).
 
+`python3 tools/run_configs_torch.py serve` runs the port's CLI warm, again
+and again in one process, a run for each request line on stdin
+(`serve_child`); `RouteServer` starts and drives it. bench_torch.py runs
+its host route so, by bench.py's protocol.
+
 The dataset makers are importable: `make_dataset_files` (the files of
 `utils.simulate.make_dataset`), `config3_files`, `config4_files` and
 `scale_files` (the 300 Mbp layout of tests/test_scale.py). They write
@@ -45,7 +50,8 @@ import contextlib
 import gzip
 import json
 import os
-import resource
+import select
+import signal
 import struct
 import subprocess
 import sys
@@ -511,20 +517,35 @@ def stage_seconds(out_dir: str) -> dict:
                  if line.strip() and not line.startswith("stage"))}
 
 
-# polls VmRSS of the process named by argv[1] every 50 ms; prints a line
-# when it runs, and on SIGTERM the peak in bytes
+# polls VmRSS of the process named by argv[1], and of each of its direct
+# children but this one, every 50 ms; prints a line when it runs, and on
+# SIGTERM the process's peak and its largest child's, in bytes
 RSS_SAMPLER = r"""
-import signal, sys, time
-path, peak = f"/proc/{sys.argv[1]}/status", 0
-def sample():
-    global peak
-    with open(path) as fh:
+import os, signal, sys, time
+pid, me, peak, child_peak = sys.argv[1], str(os.getpid()), 0, 0
+def rss(p):
+    with open(f"/proc/{p}/status") as fh:
         for line in fh:
             if line.startswith("VmRSS:"):
-                peak = max(peak, int(line.split()[1]) * 1024)
+                return int(line.split()[1]) * 1024
+    return 0
+def children():
+    for p in os.listdir("/proc"):
+        if p.isdigit() and p != me:
+            try:
+                with open(f"/proc/{p}/stat") as fh:
+                    ppid = fh.read().rsplit(")", 1)[1].split()[1]
+                if ppid == pid:
+                    yield rss(p)
+            except (OSError, IndexError):
+                pass
+def sample():
+    global peak, child_peak
+    peak = max(peak, rss(pid))
+    child_peak = max([child_peak, *children()])
 def stop(*_):
     sample()
-    print(peak, flush=True)
+    print(peak, child_peak, flush=True)
     sys.exit(0)
 signal.signal(signal.SIGTERM, stop)
 sample()
@@ -538,11 +559,12 @@ while True:
 @contextlib.contextmanager
 def rss_peak():
     """Yields a dict whose `peak_rss_bytes`, after the block, is this
-    process's peak RSS over the block, VmRSS sampled every 50 ms by a
-    child process: a thread would keep the pipeline from forking its
-    workers, and getrusage's ru_maxrss can neither be reset nor trusted
-    in a child (Linux keeps across execve the size of the address space
-    that fork copied)."""
+    process's peak RSS over the block, and `peak_child_rss_bytes` its
+    largest direct child's (the pipeline's forked workers), VmRSS sampled
+    every 50 ms by a child process: a thread would keep the pipeline from
+    forking its workers, and getrusage's ru_maxrss can neither be reset
+    nor trusted in a child (Linux keeps across execve the size of the
+    address space that fork copied)."""
     out: dict = {}
     proc = subprocess.Popen([sys.executable, "-c", RSS_SAMPLER,
                              str(os.getpid())], stdout=subprocess.PIPE,
@@ -554,21 +576,25 @@ def rss_peak():
     finally:
         proc.terminate()
         text, _err = proc.communicate(timeout=10)
-    out["peak_rss_bytes"] = int(text.split()[-1])
+    out["peak_rss_bytes"], out["peak_child_rss_bytes"] = (
+        int(field) for field in text.split()[-2:])
+
+
+def launch_counters() -> dict:
+    from mandalorion_tpu_torch.align import chain_kernel, kernels
+    from mandalorion_tpu_torch.poa import kernels as poa
+    return dict(dp_fused=kernels.DP_LAUNCHES,
+                chain_rows=chain_kernel.CHAIN_LAUNCHES,
+                poa_fwd=poa.POA_FWD_LAUNCHES, poa_walk=poa.POA_WALK_LAUNCHES,
+                poa_sweep=poa.POA_SWEEP_LAUNCHES)
 
 
 def route_child(cli_args) -> None:
     """The `route` subcommand: one run of the port's CLI in this process,
     then one JSON line of its resources."""
     import torch
-    from mandalorion_tpu_torch.align import chain_kernel, kernels
     from mandalorion_tpu_torch.pipeline import cli
-    from mandalorion_tpu_torch.poa import kernels as poa
-    counters = dict(dp_fused=kernels.DP_LAUNCHES,
-                    chain_rows=chain_kernel.CHAIN_LAUNCHES,
-                    poa_fwd=poa.POA_FWD_LAUNCHES,
-                    poa_walk=poa.POA_WALK_LAUNCHES,
-                    poa_sweep=poa.POA_SWEEP_LAUNCHES)
+    counters = launch_counters()
     for counter in counters.values():
         counter.count = 0
     with rss_peak() as rss:
@@ -581,10 +607,8 @@ def route_child(cli_args) -> None:
         peak_dev = torch.cuda.max_memory_allocated()
     print(json.dumps({
         "rc": rc, "seconds": seconds, "peak_device_bytes": peak_dev,
-        "launches": {k: c.count for k, c in counters.items()},
-        "peak_rss_bytes": rss["peak_rss_bytes"],
-        "peak_child_rss_bytes": resource.getrusage(
-            resource.RUSAGE_CHILDREN).ru_maxrss * 1024}), flush=True)
+        "launches": {k: c.count for k, c in counters.items()}, **rss}),
+        flush=True)
     if rc != 0:
         raise SystemExit(rc)
 
@@ -606,7 +630,12 @@ def run_route(label: str, out_dir: str, inputs, flags, n_reads: int,
     if proc.returncode != 0:
         raise RuntimeError(f"{label} failed ({proc.returncode}):\n"
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    return route_result(label, out_dir, n_reads,
+                        json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+def route_result(label: str, out_dir: str, n_reads: int, res: dict) -> dict:
+    """A run's answer with its stage seconds and reads/s added; printed."""
     res["stages"] = stages = stage_seconds(out_dir)
     res["module_a_reads_s"] = n_reads / stages["A_alignment"]
     res["apdfq_reads_s"] = n_reads / sum(stages.values())
@@ -619,6 +648,122 @@ def run_route(label: str, out_dir: str, inputs, flags, n_reads: int,
           f"{res['peak_device_bytes']} bytes; launches {res['launches']}",
           flush=True)
     return res
+
+
+def serve_child() -> None:
+    """The `serve` subcommand: the port's CLI run again and again in this
+    one process, warm. A request is one JSON line on stdin, the CLI's
+    arguments; the answer is one JSON line of the run's resources on a
+    duplicate of the stdout this process started with, while fd 1 points
+    at stderr, so that neither the CLI's prints nor its forked workers'
+    reach the answers. Before each run it raises unless the pipeline may
+    fork its pools (one thread, CUDA never initialised); each answer
+    counts the forks the run made. A failed run, or a line that is not
+    JSON, raises, which ends the process non-zero."""
+    import threading
+    import torch
+    from mandalorion_tpu_torch.pipeline import cli
+    sys.stdout.flush()
+    answers = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)
+    forks = [0]
+    os.register_at_fork(
+        after_in_parent=lambda: forks.__setitem__(0, forks[0] + 1))
+    counters = launch_counters()
+    for line in sys.stdin:
+        cli_args = json.loads(line)
+        threads = threading.active_count()
+        if threads != 1 or torch.cuda.is_initialized():
+            raise RuntimeError(
+                f"serve: the pipeline could not fork its pools ({threads} "
+                f"threads, CUDA initialised "
+                f"{torch.cuda.is_initialized()}): {cli_args}")
+        for counter in counters.values():
+            counter.count = 0
+        forks_before = forks[0]
+        with rss_peak() as rss:
+            t0 = time.time()
+            rc = cli.main(cli_args)
+            seconds = time.time() - t0
+        if rc != 0:
+            raise SystemExit(f"serve: the run returned {rc}: {cli_args}")
+        answers.write(json.dumps({
+            "seconds": seconds, "forks": forks[0] - forks_before,
+            "threads": threads,
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "peak_device_bytes": None,
+            "launches": {k: c.count for k, c in counters.items()},
+            **rss}) + "\n")
+        answers.flush()
+
+
+class RouteServer:
+    """A `serve` child in a process group of its own: the port's CLI run
+    warm, a run a request (`run`). Its stderr, the CLI's output included,
+    goes to `log_path`. Leaving the block ends the requests, waits for
+    the child and checks its exit code; leaving it on an exception kills
+    the child's whole group (its RSS sampler and forked workers too)."""
+
+    def __init__(self, log_path: str):
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "serve"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.log, text=True,
+            start_new_session=True)
+
+    def __enter__(self) -> "RouteServer":
+        return self
+
+    def __exit__(self, exc_type, _exc, _tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self.kill()
+
+    def log_tail(self) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()[-3000:]
+
+    def run(self, label: str, out_dir: str, inputs, flags, n_reads: int,
+            timeout: float) -> dict:
+        """The CLI on `inputs` with `flags` in the child; raises, naming
+        `label`, when the run fails or is not answered within `timeout`
+        seconds. Returns what `run_route` returns, and the forks."""
+        try:
+            self.proc.stdin.write(json.dumps(
+                ["-p", out_dir, *inputs, *flags]) + "\n")
+            self.proc.stdin.flush()
+        except BrokenPipeError as exc:
+            raise RuntimeError(f"{label}: the serve child has ended "
+                               f"({self.proc.wait()}):\n{self.log_tail()}"
+                               ) from exc
+        ready, _w, _x = select.select([self.proc.stdout], [], [], timeout)
+        if not ready:
+            raise RuntimeError(f"{label} did not end within {timeout} s")
+        line = self.proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"{label} failed ({self.proc.wait()}):\n"
+                               f"{self.log_tail()}")
+        return route_result(label, out_dir, n_reads, json.loads(line))
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=60)
+        self.proc.stdout.close()
+        self.log.close()
+        if rc != 0:
+            raise RuntimeError(f"the serve child ended with {rc}:\n"
+                               f"{self.log_tail()}")
+
+    def kill(self) -> None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        for fh in (self.proc.stdin, self.proc.stdout, self.log):
+            with contextlib.suppress(OSError):
+                fh.close()
 
 
 def same_artifacts(runs: dict) -> None:
@@ -740,6 +885,9 @@ COMMANDS = {"config2": (run_config2, (int, int)),
 def main(argv) -> int:
     if argv[:1] == ["route"]:
         route_child(argv[1:])
+        return 0
+    if argv == ["serve"]:
+        serve_child()
         return 0
     device, rest = "cuda", []
     it = iter(argv)
