@@ -1,0 +1,12 @@
+"""A_idle_share: the share of the traced A_alignment stage windows in
+which no kernel, memcpy or memset ran on the card, in %."""
+
+
+def read(run):
+    stages = [j.trace["A_alignment"] for j in run.traced_jobs()
+              if "A_alignment" in j.trace]
+    window = sum(b["window_s"] for b in stages)
+    if not stages or window <= 0 or any(b["busy_s"] is None
+                                        for b in stages):
+        return None
+    return 100.0 * (1.0 - sum(b["busy_s"] for b in stages) / window)
