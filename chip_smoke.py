@@ -2200,10 +2200,10 @@ def launches_by_stage(out: dict):
     plain_stage = observe.StageTimer.stage
 
     @contextlib.contextmanager
-    def stage(self, name, count=None):
+    def stage(self, name):
         before = {n: counter.count for n, *_r, counter in KERNELS}
         try:
-            with plain_stage(self, name, count):
+            with plain_stage(self, name):
                 yield
         finally:
             out[name] = {n: counter.count - before[n]

@@ -80,6 +80,7 @@ from mandalorion_tpu_torch.native import (
 from mandalorion_tpu_torch.parallel.dist import (
     IndexShards, place_index_shards, shard_index_arrays)
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
+from mandalorion_tpu_torch.pipeline.observe import span
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
 
 
@@ -974,34 +975,41 @@ class TorchSpliceAligner(SpliceAligner):
                     ) -> List[PslRecord]:
         """The staged route: C seed, chain kernel, C fill, the DP of
         cfg.dp_backend (`dp_batch`), C emit."""
-        codes_all, read_off, seeded = self.seed_batch(reads)
+        with span("align.seed", len(reads)):
+            codes_all, read_off, seeded = self.seed_batch(reads)
         if seeded[0] == 0:
             return []
-        rows = self.chain_batch(seeded)
-        strand, chrom, oriented, run_off, runs, probs = self.fill_batch(
-            codes_all, read_off, seeded, rows)
+        with span("align.chain", int(seeded[0])):
+            rows = self.chain_batch(seeded)
+        with span("align.fill", len(reads)):
+            strand, chrom, oriented, run_off, runs, probs = self.fill_batch(
+                codes_all, read_off, seeded, rows)
         cfg = self.cfg
-        meta, ks, buf, on_host = self.dp_batch(probs, oriented, read_off)
-        stats, blk_off, bs, bq, bt, cs_off, cs_raw = \
-            native_stage_emit_batch(
-                oriented, read_off, self.index.seq_codes, strand, run_off,
-                runs, probs, on_host, meta, ks, buf, cfg.match,
-                cfg.mismatch, cfg.gap_open, cfg.gap_extend, cfg.end_bonus,
-                cfg.zdrop)
+        with span("align.dp", len(probs[0])):
+            meta, ks, buf, on_host = self.dp_batch(probs, oriented, read_off)
+        with span("align.emit", len(reads)):
+            stats, blk_off, bs, bq, bt, cs_off, cs_raw = \
+                native_stage_emit_batch(
+                    oriented, read_off, self.index.seq_codes, strand,
+                    run_off, runs, probs, on_host, meta, ks, buf, cfg.match,
+                    cfg.mismatch, cfg.gap_open, cfg.gap_extend,
+                    cfg.end_bonus, cfg.zdrop)
 
-        out: List[PslRecord] = []
-        for ri, (name, seq) in enumerate(reads):
-            if strand[ri] < 0 or stats[ri, 7] == 0:
-                continue
-            b0, b1 = int(blk_off[ri]), int(blk_off[ri + 1])
-            pend = _Pending(
-                name, seq, "+" if strand[ri] == 0 else "-",
-                oriented[read_off[ri]:read_off[ri + 1]], int(chrom[ri]),
-                [], [])
-            rec = self._psl_record(
-                pend, stats[ri], bs[b0:b1].tolist(), bq[b0:b1].tolist(),
-                bt[b0:b1].tolist(),
-                cs_raw[cs_off[ri]:cs_off[ri + 1]].decode())
-            if rec is not None:
-                out.append(rec)
+        with span("align.records") as s:
+            out: List[PslRecord] = []
+            for ri, (name, seq) in enumerate(reads):
+                if strand[ri] < 0 or stats[ri, 7] == 0:
+                    continue
+                b0, b1 = int(blk_off[ri]), int(blk_off[ri + 1])
+                pend = _Pending(
+                    name, seq, "+" if strand[ri] == 0 else "-",
+                    oriented[read_off[ri]:read_off[ri + 1]], int(chrom[ri]),
+                    [], [])
+                rec = self._psl_record(
+                    pend, stats[ri], bs[b0:b1].tolist(), bq[b0:b1].tolist(),
+                    bt[b0:b1].tolist(),
+                    cs_raw[cs_off[ri]:cs_off[ri + 1]].decode())
+                if rec is not None:
+                    out.append(rec)
+            s.items = len(out)
         return out

@@ -41,12 +41,13 @@ fork). Either kind needs a single-threaded parent.
 
 from __future__ import annotations
 
+import itertools
 import os
 import shutil
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -70,7 +71,7 @@ from mandalorion_tpu_torch.io.psl import (
     PslRecord, format_psl, parse_psl_line, read_psl, sort_psl_file)
 from mandalorion_tpu_torch.io.sam import sam_to_psl
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
-from mandalorion_tpu_torch.pipeline.observe import StageTimer
+from mandalorion_tpu_torch.pipeline.observe import StageTimer, span
 from mandalorion_tpu_torch.poa.consensus import (
     determine_consensus_batch, graph_backend)
 from mandalorion_tpu_torch.runtime import fork_ok, resolve_device
@@ -192,8 +193,9 @@ def module_a(paths: Paths, cfg: PipelineConfig, fasta_files: str,
             bam_to_fasta(bam, out_fa)
             converted.append(out_fa)
         fasta_list = converted
-    combined, ok = combine_fastx(fasta_list,
-                                 paths.t("Combined.fasta"))
+    with span("align.read"):
+        combined, ok = combine_fastx(fasta_list,
+                                     paths.t("Combined.fasta"))
     if not ok:
         print("\t no reads were provided. Alignment will not be performed")
         return
@@ -205,9 +207,10 @@ def module_a(paths: Paths, cfg: PipelineConfig, fasta_files: str,
     # (plain files) so pool workers can seek to their slice; gzipped
     # pass-through inputs fall back to counting + worker skip-parse
     from mandalorion_tpu_torch.io.fastx import scan_record_offsets
-    offsets = scan_record_offsets(combined)
-    n_reads = (len(offsets) if offsets is not None
-               else sum(1 for _ in read_fastx(combined)))
+    with span("align.read"):
+        offsets = scan_record_offsets(combined)
+        n_reads = (len(offsets) if offsets is not None
+                   else sum(1 for _ in read_fastx(combined)))
     # a few jobs per worker: balances load; plain files address slices by
     # byte offset (workers seek), .gz inputs fall back to record counts
     # plus a worker-side islice skip-parse
@@ -231,20 +234,23 @@ def module_a(paths: Paths, cfg: PipelineConfig, fasta_files: str,
                     for k in range(n_jobs)]
             with ctx.Pool(_pool_size(cfg.threads, n_jobs)) as pool:
                 for part in pool.imap(_align_chunk_worker, jobs):
-                    with open(part) as pf:
-                        shutil.copyfileobj(pf, out)
-                    os.remove(part)
+                    with span("align.write"):
+                        with open(part) as pf:
+                            shutil.copyfileobj(pf, out)
+                        os.remove(part)
         else:
-            batch: List[Tuple[str, str]] = []
-            for name, seq, _q in read_fastx(combined):
-                batch.append((name, seq))
-                if len(batch) >= chunk:
-                    for rec in aligner.map_batch(batch):
+            records = read_fastx(combined)
+            while True:
+                with span("align.read") as s:
+                    batch = [(name, seq) for name, seq, _q in
+                             itertools.islice(records, chunk)]
+                    s.items = len(batch)
+                if not batch:
+                    break
+                recs = aligner.map_batch(batch)
+                with span("align.write", len(recs)):
+                    for rec in recs:
                         out.write(format_psl(rec) + "\n")
-                    batch = []
-            if batch:
-                for rec in aligner.map_batch(batch):
-                    out.write(format_psl(rec) + "\n")
     dt = time.time() - t0
     print(f"\taligned {n_reads} reads in {dt:.1f}s "
           f"({n_reads / max(dt, 1e-9):.1f} reads/s)")
@@ -253,8 +259,9 @@ def module_a(paths: Paths, cfg: PipelineConfig, fasta_files: str,
         from mandalorion_tpu_torch.io.sam import write_sam
         sizes = {n: int(z) for n, z in zip(aligner.index.chrom_names,
                                            aligner.index.chrom_sizes)}
-        write_sam(paths.t("mm2Alignments.sam"),
-                  read_psl(paths.t("mm2Alignments.psl")), sizes)
+        with span("align.write"):
+            write_sam(paths.t("mm2Alignments.sam"),
+                      read_psl(paths.t("mm2Alignments.psl")), sizes)
 
 
 # ------------------------------------------------------------- module P
@@ -372,6 +379,54 @@ def module_d(paths: Paths, cfg: PipelineConfig, annotation_path: str,
             or os.path.getsize(sorted_psl) == 0):
         print("\tclean sorted psl file missing or empty")
         return
+    with span("define.prepare") as s:
+        jobs = _locus_jobs(paths, cfg, annotation_path)
+        s.items = len(jobs)
+        graph_engine = cfg.poa.engine == "graph"
+        worker = _locus_prepare_worker if graph_engine else _locus_worker
+        if cfg.threads > 1 and len(jobs) > 1 and _may_fork():
+            import multiprocessing as mp
+            ctx = mp.get_context("fork")
+            with ctx.Pool(_pool_size(cfg.threads, len(jobs)),
+                          maxtasksperchild=8) as pool:
+                all_results = pool.starmap(worker, jobs)
+        else:
+            all_results = [worker(*j) for j in jobs]
+    if graph_engine:
+        # compute phase, in this process: with the device backend the
+        # pending graph DPs of ALL loci resolve in shared batched
+        # dispatches (bit-identical to per-locus resolves; grouping only
+        # changes padding)
+        from mandalorion_tpu_torch.poa.consensus import resolve_consensus_jobs
+        flat = [job for locus_jobs in all_results for job in locus_jobs]
+        with span("define.resolve", len(flat)):
+            resolved = iter(resolve_consensus_jobs(
+                flat, backend=graph_backend(cfg.poa.backend), device=device))
+        all_results = [[next(resolved) for _ in locus_jobs]
+                       for locus_jobs in all_results]
+
+    with span("define.write") as s:
+        counter = 0
+        with open(paths.t("Isoform_Consensi.fasta"), "w") as out, \
+                open(paths.t("reads2isoforms.txt"), "w") as r2i:
+            for results in all_results:  # deterministic sorted-locus order
+                for consensus, names in results:
+                    counter += 1
+                    iso_name = f"Isoform{counter}_{len(names)}"
+                    out.write(f">{iso_name}\n{consensus}\n")
+                    for name in names:
+                        r2i.write(f"{name}\t{iso_name}\n")
+        shutil.copy(paths.t("reads2isoforms.txt"),
+                    paths.o("Mando_isoforms.read_stat.txt"))
+        s.items = counter
+    print(f"\t{counter} isoform consensi written")
+
+
+def _locus_jobs(paths: Paths, cfg: PipelineConfig,
+                annotation_path: str) -> list:
+    """Module D's locus jobs (locus psl, chrom, left and right annotated
+    bounds, cfg), after the annotation parse and the poly(A) whitelist
+    bed."""
     whitelist_on = "0" not in cfg.white_list_polyA
     if annotation_path not in (None, "None") and (
             annotation_path.endswith(".gtf")
@@ -404,42 +459,7 @@ def module_d(paths: Paths, cfg: PipelineConfig, annotation_path: str,
                             if start < p < end]
         jobs.append((os.path.join(paths.tmp_ss, root + ".psl"), chrom,
                      lb, rb, cfg))
-
-    graph_engine = cfg.poa.engine == "graph"
-    worker = _locus_prepare_worker if graph_engine else _locus_worker
-    if cfg.threads > 1 and len(jobs) > 1 and _may_fork():
-        import multiprocessing as mp
-        ctx = mp.get_context("fork")
-        with ctx.Pool(_pool_size(cfg.threads, len(jobs)),
-                      maxtasksperchild=8) as pool:
-            all_results = pool.starmap(worker, jobs)
-    else:
-        all_results = [worker(*j) for j in jobs]
-    if graph_engine:
-        # compute phase, in this process: with the device backend the
-        # pending graph DPs of ALL loci resolve in shared batched
-        # dispatches (bit-identical to per-locus resolves; grouping only
-        # changes padding)
-        from mandalorion_tpu_torch.poa.consensus import resolve_consensus_jobs
-        flat = [job for locus_jobs in all_results for job in locus_jobs]
-        resolved = iter(resolve_consensus_jobs(
-            flat, backend=graph_backend(cfg.poa.backend), device=device))
-        all_results = [[next(resolved) for _ in locus_jobs]
-                       for locus_jobs in all_results]
-
-    counter = 0
-    with open(paths.t("Isoform_Consensi.fasta"), "w") as out, \
-            open(paths.t("reads2isoforms.txt"), "w") as r2i:
-        for results in all_results:  # deterministic sorted-locus order
-            for consensus, names in results:
-                counter += 1
-                iso_name = f"Isoform{counter}_{len(names)}"
-                out.write(f">{iso_name}\n{consensus}\n")
-                for name in names:
-                    r2i.write(f"{name}\t{iso_name}\n")
-    shutil.copy(paths.t("reads2isoforms.txt"),
-                paths.o("Mando_isoforms.read_stat.txt"))
-    print(f"\t{counter} isoform consensi written")
+    return jobs
 
 
 # ------------------------------------------------------------- module F
@@ -462,43 +482,57 @@ def module_f(paths: Paths, cfg: PipelineConfig, genome_path: str,
     if not os.path.exists(consensi) or os.path.getsize(consensi) == 0:
         print("\tisoforms fasta missing or empty")
         return
-    genome = fastx_to_dict(genome_path)
-    isoforms = fastx_to_dict(consensi)
-    if aligner is None:
-        aligner = SpliceAligner(genome, cfg.align)
+    with span("filter.genome"):
+        genome = fastx_to_dict(genome_path)
+        isoforms = fastx_to_dict(consensi)
     # a run's isoform set is a handful of sequences — device dispatch
     # latency would dominate, so this stage always uses the host
     # backends. The DP backends are bit-identical; the two chain
     # backends agree up to transcendental-ulp log2 differences
     # (CLAUDE.md), so the host result here is the canonical
     # reference-parity output.
-    aligner = aligner.host_twin()
-    print("\taligning isoform consensus sequences")
-    with open(paths.t("Isoforms.aligned.out.psl"), "w") as out:
-        items = list(isoforms.items())
-        for i in range(0, len(items), cfg.align.batch_reads):
-            for rec in aligner.map_batch(items[i:i + cfg.align.batch_reads]):
-                rec = PslRecord(**{**rec.__dict__})
-                rec.accuracy = rec.cs = rec.sequence = None  # 21-col psl
-                out.write(format_psl(rec) + "\n")
-    clean_psl_file(paths.t("Isoforms.aligned.out.psl"),
-                   paths.t("Isoforms.aligned.out.clean.psl"), False,
-                   cfg.minimum_intron_size)
-    chromosomes = sorted({line.split("\t")[13] for line in
-                          open(paths.t("Isoforms.aligned.out.clean.psl"))
-                          if line.strip()})
-    jobs = [(chrom, paths.t("Isoforms.aligned.out.clean.psl"),
-             genome.get(chrom, ""), paths.t("polyAWhiteList.bed"), cfg)
-            for chrom in chromosomes]
-    if cfg.threads > 1 and len(jobs) > 1 and _may_fork():
-        # per-chromosome fan-out, ordered merge (filterIsoforms.py:497-509)
-        import multiprocessing as mp
-        ctx = mp.get_context("fork")
-        with ctx.Pool(_pool_size(cfg.threads, len(jobs))) as pool:
-            chrom_results = pool.starmap(_filter_chrom_worker, jobs)
-    else:
-        chrom_results = [_filter_chrom_worker(*j) for j in jobs]
+    with span("filter.realign", len(isoforms)):
+        if aligner is None:
+            aligner = SpliceAligner(genome, cfg.align)
+        aligner = aligner.host_twin()
+        print("\taligning isoform consensus sequences")
+        with open(paths.t("Isoforms.aligned.out.psl"), "w") as out:
+            items = list(isoforms.items())
+            for i in range(0, len(items), cfg.align.batch_reads):
+                for rec in aligner.map_batch(
+                        items[i:i + cfg.align.batch_reads]):
+                    rec = PslRecord(**{**rec.__dict__})
+                    rec.accuracy = rec.cs = rec.sequence = None  # 21-col
+                    out.write(format_psl(rec) + "\n")
+    with span("filter.chroms"):
+        clean_psl_file(paths.t("Isoforms.aligned.out.psl"),
+                       paths.t("Isoforms.aligned.out.clean.psl"), False,
+                       cfg.minimum_intron_size)
+        chromosomes = sorted({line.split("\t")[13] for line in
+                              open(paths.t("Isoforms.aligned.out.clean.psl"))
+                              if line.strip()})
+        jobs = [(chrom, paths.t("Isoforms.aligned.out.clean.psl"),
+                 genome.get(chrom, ""), paths.t("polyAWhiteList.bed"), cfg)
+                for chrom in chromosomes]
+        if cfg.threads > 1 and len(jobs) > 1 and _may_fork():
+            # per-chromosome fan-out, ordered merge
+            # (filterIsoforms.py:497-509)
+            import multiprocessing as mp
+            ctx = mp.get_context("fork")
+            with ctx.Pool(_pool_size(cfg.threads, len(jobs))) as pool:
+                chrom_results = pool.starmap(_filter_chrom_worker, jobs)
+        else:
+            chrom_results = [_filter_chrom_worker(*j) for j in jobs]
 
+    with span("filter.write"):
+        _filter_outputs(paths, annotation_path, isoforms, chrom_results)
+
+
+def _filter_outputs(paths: Paths, annotation_path: str,
+                    isoforms: Dict[str, str], chrom_results: list) -> None:
+    """Module F's outputs from the per-chromosome results: the kept
+    isoforms' fasta and psl, the reasons, the GTF, the sorted psl and the
+    gene grouping, then their copies in the output directory."""
     with open(paths.t("filter_reasons.txt"), "w") as reasons, \
             open(paths.t("Isoforms.filtered.fasta"), "w") as ffa, \
             open(paths.t("Isoforms.filtered.clean.psl"), "w") as fpsl:
@@ -574,12 +608,28 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
     _log(paths, cfg)
     timer = StageTimer(paths.t("timing.tsv"),
                        device=device if uses_device else None)
+    with timer:
+        _run_stages(timer, paths, genome_path, annotation_path, fasta_files,
+                    cfg, device, on_device)
+    print("\n\tstage timing:")
+    print(timer.summary())
+    return paths
+
+
+def _run_stages(timer: StageTimer, paths: Paths, genome_path: str,
+                annotation_path: str, fasta_files: str, cfg: PipelineConfig,
+                device, on_device: bool) -> None:
+    """run_pipeline's stages, APDFQ or cfg.modules, each timed by
+    `timer`."""
     aligner: Optional[SpliceAligner] = None
     if "A" in cfg.modules or "F" in cfg.modules:
         with timer.stage("index_build"):
-            genome = fastx_to_dict(genome_path)
-            aligner = (TorchSpliceAligner(genome, cfg.align, device=device)
-                       if on_device else SpliceAligner(genome, cfg.align))
+            with span("index.genome"):
+                genome = fastx_to_dict(genome_path)
+            with span("index.load"):
+                aligner = (TorchSpliceAligner(genome, cfg.align,
+                                              device=device)
+                           if on_device else SpliceAligner(genome, cfg.align))
     if "A" in cfg.modules:
         with timer.stage("A_alignment"):
             # a route on the device: one process (a CUDA context does not
@@ -602,7 +652,8 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
         if p_writer is not None:
             # the -M checkpoint writer overlapped module D; it must be
             # on disk before the run is considered complete
-            p_writer.join()
+            with span("checkpoint_wait"):
+                p_writer.join()
     if p_writer is not None and p_writer.exitcode != 0:
         raise RuntimeError(f"module P checkpoint writer failed (exit code "
                            f"{p_writer.exitcode}): clean.psl / "
@@ -613,6 +664,3 @@ def run_pipeline(out_path: str, genome_path: str, annotation_path: str,
     if "Q" in cfg.modules:
         with timer.stage("Q_quant"):
             module_q(paths, cfg, fasta_files)
-    print("\n\tstage timing:")
-    print(timer.summary())
-    return paths

@@ -69,7 +69,6 @@ dispatch carries problems of any mix of bands; every other field of
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,6 +78,7 @@ from mandalorion_tpu_torch import _build
 from mandalorion_tpu_torch.native import load_native
 from mandalorion_tpu_torch.parallel.mesh import (
     fetch_global, pad_rows, pipeline_mesh)
+from mandalorion_tpu_torch.pipeline.observe import span
 from mandalorion_tpu_torch.poa.graph import NEG, PoaGraph, PoaParams
 from mandalorion_tpu_torch.runtime import (
     LaunchCounter, require_native, resolve_device)
@@ -111,9 +111,10 @@ Mats = Tuple[torch.Tensor, ...]  # hpack, opack, d1p, d2p, offs, endcol
 class RunObserver:
     """What a caller asks `poa_consensus_batch` to record while this
     object is installed as `OBSERVER`: rounds, chunk shapes and host
-    seconds in the C staging calls (`apply_s` covers apply_steps and
-    apply_runs alike; under MANDO_TPU_NO_NATIVE `fill_s` is graph_arrays'
-    and `apply_s` apply_path's), always; with `time_kernels` a CUDA event pair
+    seconds in the C staging calls, the `poa.fill` and `poa.apply` spans'
+    (`apply_s` covers apply_steps and apply_runs alike; under
+    MANDO_TPU_NO_NATIVE `fill_s` is graph_arrays' and `apply_s`
+    apply_path's), always; with `time_kernels` a CUDA event pair
     around every kernel launch (read after a synchronise by `kernel_ms`,
     the walk under the key of the kernel that ran); the numpy arrays of
     the chunks of `keep_rounds` as `kept` = [(round, W, l_cap, arrays)];
@@ -996,31 +997,32 @@ def _run_graph_chunk(batch, graphs, queries, orders, n_cap, l_cap, p_cap,
     """Dispatch one chunk of (graph, query) problems; write each problem's
     alignment path into paths[original_index]."""
     B = len(batch)
-    t0 = time.perf_counter()
-    base = np.zeros((B, n_cap), np.int32)
-    preds = np.full((B, n_cap, p_cap), -1, np.int32)
-    ends = np.zeros((B, n_cap), bool)
-    nn = np.zeros(B, np.int32)
-    qq = np.zeros((B, l_cap), np.int32)
-    ql = np.zeros(B, np.int32)
-    for bi, gi in enumerate(batch):
-        b, p, e, _ = graph_arrays(graphs[gi], n_cap, p_cap, orders[gi])
-        base[bi], preds[bi], ends[bi] = b, p, e
-        nn[bi] = len(orders[gi])
-        q = queries[gi]
-        qq[bi, :len(q)] = q
-        ql[bi] = len(q)
-    band = np.array([bands[gi] for gi in batch], np.int32)
+    with span("poa.fill") as fill:
+        base = np.zeros((B, n_cap), np.int32)
+        preds = np.full((B, n_cap, p_cap), -1, np.int32)
+        ends = np.zeros((B, n_cap), bool)
+        nn = np.zeros(B, np.int32)
+        qq = np.zeros((B, l_cap), np.int32)
+        ql = np.zeros(B, np.int32)
+        for bi, gi in enumerate(batch):
+            b, p, e, _ = graph_arrays(graphs[gi], n_cap, p_cap, orders[gi])
+            base[bi], preds[bi], ends[bi] = b, p, e
+            nn[bi] = len(orders[gi])
+            q = queries[gi]
+            qq[bi, :len(q)] = q
+            ql[bi] = len(q)
+        band = np.array([bands[gi] for gi in batch], np.int32)
     if obs is not None:
-        obs.fill_s += time.perf_counter() - t0
+        obs.fill_s += fill.seconds
         obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W, l_cap, params)
-    buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, band, W, l_cap,
-                             params, device, obs)
-    for bi, gi in enumerate(batch):
-        order = orders[gi]
-        steps = buf[bi, :ks[bi]][::-1]
-        paths[gi] = [(int(qi), order[rank] if rank >= 0 else None)
-                     for qi, rank in steps]
+    with span("poa.dispatch", B):
+        buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, band, W,
+                                 l_cap, params, device, obs)
+        for bi, gi in enumerate(batch):
+            order = orders[gi]
+            steps = buf[bi, :ks[bi]][::-1]
+            paths[gi] = [(int(qi), order[rank] if rank >= 0 else None)
+                         for qi, rank in steps]
 
 
 class NativePoaGraph:
@@ -1153,36 +1155,37 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
             for c0 in range(0, len(idxs), chunk):
                 batch = idxs[c0:c0 + chunk]
                 B = len(batch)
-                t0 = time.perf_counter()
-                base = np.zeros((B, n_cap), np.int32)
-                preds = np.full((B, n_cap, p_cap), -1, np.int32)
-                ends = np.zeros((B, n_cap), np.uint8)
-                nn = np.zeros(B, np.int32)
-                qq = np.zeros((B, l_cap), np.int32)
-                ql = np.zeros(B, np.int32)
-                band = np.array([bands[live[pos]] for pos in batch],
-                                np.int32)
-                for bi, pos in enumerate(batch):
-                    g = graphs[live[pos]]
-                    nn[bi] = g.fill_arrays(base[bi], preds[bi], ends[bi])
-                    q = queries[pos]
-                    qq[bi, :len(q)] = q
-                    ql[bi] = len(q)
+                with span("poa.fill") as fill:
+                    base = np.zeros((B, n_cap), np.int32)
+                    preds = np.full((B, n_cap, p_cap), -1, np.int32)
+                    ends = np.zeros((B, n_cap), np.uint8)
+                    nn = np.zeros(B, np.int32)
+                    qq = np.zeros((B, l_cap), np.int32)
+                    ql = np.zeros(B, np.int32)
+                    band = np.array([bands[live[pos]] for pos in batch],
+                                    np.int32)
+                    for bi, pos in enumerate(batch):
+                        g = graphs[live[pos]]
+                        nn[bi] = g.fill_arrays(base[bi], preds[bi], ends[bi])
+                        q = queries[pos]
+                        qq[bi, :len(q)] = q
+                        ql[bi] = len(q)
                 if obs is not None:
-                    obs.fill_s += time.perf_counter() - t0
+                    obs.fill_s += fill.seconds
                     obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W,
                               l_cap, params)
-                rows, counts = dispatch_chunk(base, preds, nn, ends, qq, ql,
-                                              band, W, l_cap, params, device,
-                                              obs, round_walk)
-                t0 = time.perf_counter()
-                for bi, pos in enumerate(batch):
-                    g = graphs[live[pos]]
-                    apply = (g.apply_runs if round_walk == "sweep"
-                             else g.apply_steps)
-                    apply(queries[pos], rows[bi], int(counts[bi]))
+                with span("poa.dispatch", B):
+                    rows, counts = dispatch_chunk(
+                        base, preds, nn, ends, qq, ql, band, W, l_cap,
+                        params, device, obs, round_walk)
+                with span("poa.apply") as applied:
+                    for bi, pos in enumerate(batch):
+                        g = graphs[live[pos]]
+                        apply = (g.apply_runs if round_walk == "sweep"
+                                 else g.apply_steps)
+                        apply(queries[pos], rows[bi], int(counts[bi]))
                 if obs is not None:
-                    obs.apply_s += time.perf_counter() - t0
+                    obs.apply_s += applied.seconds
     out = [g.consensus() for g in graphs]
     for g in graphs:
         g.close()
@@ -1203,9 +1206,9 @@ def _poa_rounds_python(seq_sets, params, device, bands, obs
         paths = _align_graphs([graphs[i] for i in live],
                               [seq_sets[i][k] for i in live], params, device,
                               [bands[i] for i in live], obs, k)
-        t0 = time.perf_counter()
-        for i, path in zip(live, paths):
-            graphs[i].apply_path(seq_sets[i][k], path)
+        with span("poa.apply") as applied:
+            for i, path in zip(live, paths):
+                graphs[i].apply_path(seq_sets[i][k], path)
         if obs is not None:
-            obs.apply_s += time.perf_counter() - t0
+            obs.apply_s += applied.seconds
     return [g.consensus() for g in graphs]

@@ -26,7 +26,8 @@ from mandalorion_tpu.pipeline.observe import StageTimer as ReferenceTimer
 from mandalorion_tpu.pipeline.stages import run_pipeline as reference_run
 from mandalorion_tpu.utils.simulate import make_dataset
 from mandalorion_tpu_torch.config import PipelineConfig
-from mandalorion_tpu_torch.pipeline.observe import StageTimer
+from mandalorion_tpu_torch.pipeline import observe
+from mandalorion_tpu_torch.pipeline.observe import StageTimer, span
 from mandalorion_tpu_torch.pipeline.stages import run_pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,8 +159,8 @@ def fake_profile(monkeypatch):
 
 
 def test_no_hook_runs_no_profiler(tmp_path, monkeypatch):
-    """With MANDO_TPU_PROFILE unset nothing of the profiler runs and no
-    directory is made."""
+    """With MANDO_TPU_PROFILE unset nothing of the profiler runs, a span
+    never enters record_function, and no directory is made."""
     monkeypatch.delenv("MANDO_TPU_PROFILE", raising=False)
     monkeypatch.chdir(tmp_path)
 
@@ -167,12 +168,15 @@ def test_no_hook_runs_no_profiler(tmp_path, monkeypatch):
         raise AssertionError("the profiler ran")
 
     monkeypatch.setattr(torch.profiler, "profile", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
     timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
-    with timer.stage("A_alignment", count=3):
-        pass
+    with timer.stage("A_alignment"):
+        with span("align.seed", 3):
+            pass
     assert timer.profile_dir is None
     assert os.listdir(tmp_path) == ["tmp"]
-    assert os.listdir(tmp_path / "tmp") == ["timing.tsv"]
+    assert sorted(os.listdir(tmp_path / "tmp")) == ["spans.tsv",
+                                                    "timing.tsv"]
 
 
 @pytest.mark.parametrize("device,cuda", [(None, False), ("cpu", False),
@@ -292,6 +296,277 @@ def test_trace_that_cannot_start_raises(tmp_path, monkeypatch):
                            + ".*already running"):
             with StageTimer(None, device="cpu").stage("D_define"):
                 raise AssertionError("the stage ran without its trace")
+
+
+# ------------------------------------------------ spans
+
+# the spans of the CLI's default route (module A staged on the device
+# route's plain versions, module D on the native engine), by stage
+ROUTE_SPANS = {
+    "index_build": {"index.genome", "index.load"},
+    "A_alignment": {"align.read", "align.seed", "align.chain", "align.fill",
+                    "align.dp", "align.emit", "align.records",
+                    "align.write"},
+    "D_define": {"define.prepare", "define.resolve", "define.write"},
+    "F_filter": {"filter.genome", "filter.realign", "filter.chroms",
+                 "filter.write"},
+    "run": {"checkpoint_wait"},
+}
+
+
+def _span_rows(out_dir):
+    """spans.tsv as [(stage, parent, span, calls, seconds, items)]."""
+    with open(os.path.join(out_dir, "tmp", "spans.tsv")) as fh:
+        lines = [line.rstrip("\n").split("\t") for line in fh]
+    assert lines[0] == ["stage", "parent", "span", "calls", "seconds",
+                        "items"]
+    return [(st, par, name, int(calls), float(sec),
+             int(items) if items else None)
+            for st, par, name, calls, sec, items in lines[1:]]
+
+
+def _stage_seconds(out_dir):
+    with open(os.path.join(out_dir, "tmp", "timing.tsv")) as fh:
+        lines = [line.rstrip("\n").split("\t") for line in fh]
+    assert lines[0] == ["stage", "seconds"]
+    return {st: float(sec) for st, sec in lines[1:]}
+
+
+@pytest.mark.parametrize("run", ["port", "plain"])
+def test_spans_tsv_names_each_span_of_the_route(runs, run):
+    """Each listed span of the route, under its stage, with its items;
+    the traced run adds the profiler's own seconds under run."""
+    rows = _span_rows(runs / run)
+    got: dict = {}
+    for stage, parent, name, calls, _s, items in rows:
+        got.setdefault(stage, set()).add(name)
+        assert parent == "" and calls >= 1, (stage, name)
+    want = {k: set(v) for k, v in ROUTE_SPANS.items()}
+    if run == "port":
+        want["run"].add("profiler")
+    assert got == want
+    items = {(st, n): i for st, _p, n, _c, _s, i in rows}
+    assert items[("A_alignment", "align.seed")] == 60
+    assert items[("A_alignment", "align.read")] == 60
+    assert items[("A_alignment", "align.records")] == \
+        items[("A_alignment", "align.write")] == 60
+    assert items[("D_define", "define.resolve")] == \
+        items[("D_define", "define.write")] == 3
+
+
+@pytest.mark.parametrize("run", ["port", "plain"])
+def test_child_spans_sum_to_no_more_than_their_stage(runs, run):
+    """A stage's spans are inside its seconds (timing.tsv rounds to the
+    millisecond, spans.tsv to the microsecond)."""
+    stages = _stage_seconds(runs / run)
+    sums: dict = {}
+    for stage, parent, _n, _c, seconds, _i in _span_rows(runs / run):
+        if stage != "run" and not parent:
+            sums[stage] = sums.get(stage, 0.0) + seconds
+    assert set(sums) == set(ROUTE_SPANS) - {"run"}
+    for stage, total in sums.items():
+        assert 0 < total <= stages[stage] + 5e-4 + 1e-5, stage
+
+
+@pytest.mark.parametrize("stage,name", [("A_alignment", "align.seed"),
+                                        ("D_define", "define.resolve")])
+def test_traced_stages_hold_their_spans(runs, stage, name):
+    """The traced run's stage trace holds the span as a user_annotation
+    inside the profiler's window."""
+    path = tb.stage_trace(str(runs / "port_trace" / stage))
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    window = [e for e in events if e.get("cat") == "Trace"]
+    marks = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == name]
+    assert window and marks, (stage, name)
+    lo = min(e["ts"] for e in window)
+    hi = max(e["ts"] + e["dur"] for e in window)
+    for e in marks:
+        assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+    # the untraced run wrote the same spans and no trace
+    assert not os.path.exists(runs / "plain_trace")
+
+
+def test_span_records_under_its_stage_and_parent(tmp_path):
+    """Inside a stage a span records under the stage and the span around
+    it, counting calls and summing items; between stages under run;
+    spans.tsv is written with the stage rows."""
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer:
+        with timer.stage("A_alignment"):
+            for n in (3, 4):
+                with span("align.seed", n) as outer:
+                    with span("inner") as inner:
+                        time.sleep(0.001)
+        with span("checkpoint_wait"):
+            pass
+        with timer.stage("D_define"):
+            with span("define.write") as s:
+                s.items = 7
+    assert inner.seconds >= 0.001 and outer.seconds >= inner.seconds
+    rows = {(st, par, n): (c, i) for st, par, n, c, _s, i in
+            _span_rows(tmp_path)}
+    assert rows == {("A_alignment", "", "align.seed"): (2, 7),
+                    ("A_alignment", "align.seed", "inner"): (2, None),
+                    ("run", "", "checkpoint_wait"): (1, None),
+                    ("D_define", "", "define.write"): (1, 7)}
+    assert list(_stage_seconds(tmp_path)) == ["A_alignment", "D_define"]
+    assert observe.RUNS[-1] is timer and timer.ended >= timer.started
+    assert observe._ACTIVE is None
+
+
+def test_span_without_a_running_timer_records_nothing(tmp_path):
+    """With no timer running, and in a thread other than the timer's, a
+    span times its block for its caller and records nothing."""
+    import threading
+    with span("align.seed", 5) as s:
+        time.sleep(0.001)
+    assert s.seconds >= 0.001
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    seen = []
+
+    def other():
+        with span("elsewhere") as t:
+            pass
+        seen.append(t.seconds)
+
+    with timer.stage("A_alignment"):
+        worker = threading.Thread(target=other)
+        worker.start()
+        worker.join(timeout=60)
+    assert not worker.is_alive() and len(seen) == 1
+    assert timer.spans == {}
+    assert os.listdir(tmp_path / "tmp") == ["timing.tsv"]
+
+
+def test_span_in_a_forked_child_records_nothing(tmp_path):
+    """A span entered in a forked child records nothing in the child's
+    copy of the timer, and nothing reaches the parent's file."""
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    read_end, write_end = os.pipe()
+    with timer.stage("D_define"):
+        with span("define.prepare"):
+            pid = os.fork()
+            if pid == 0:    # the child: report, and leave at once
+                ok = False
+                try:
+                    with span("child.only"):
+                        pass
+                    ok = observe._ACTIVE is None and not any(
+                        k[2] == "child.only" for k in timer.spans)
+                finally:
+                    os.write(write_end, b"1" if ok else b"0")
+                    os._exit(0)
+            os.close(write_end)
+            with os.fdopen(read_end, "rb") as fh:
+                said = fh.read()
+            _pid, status = os.waitpid(pid, 0)
+    assert status == 0 and said == b"1"
+    names = [n for _st, _p, n, *_r in _span_rows(tmp_path)]
+    assert names == ["define.prepare"]
+
+
+def _poa_sets(seed, n_sets=3, n_reads=4, length=48):
+    """Read sets of a random template, each read with two
+    substitutions."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for _ in range(n_sets):
+        template = rng.integers(0, 4, length).astype(np.uint8)
+        reads = []
+        for _r in range(n_reads):
+            read = template.copy()
+            at = rng.choice(length, 2, replace=False)
+            read[at] = (read[at] + 1) % 4
+            reads.append(read)
+        sets.append(reads)
+    return sets
+
+
+@pytest.mark.parametrize("graphs", ["native", "python"])
+def test_run_observer_reads_the_poa_spans(tmp_path, monkeypatch, graphs):
+    """RunObserver's fill_s and apply_s are the poa.fill and poa.apply
+    spans' seconds, native and Python graphs alike; the round's spans sit
+    inside define.resolve."""
+    from mandalorion_tpu_torch.poa import kernels as K
+    from mandalorion_tpu_torch.poa.graph import PoaParams
+    if graphs == "native" and K.load_native() is None:
+        pytest.skip("native library unavailable")
+    if graphs == "python":
+        monkeypatch.setattr(K, "load_native", lambda: None)
+    obs = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", obs)
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer.stage("D_define"):
+        with span("define.resolve", 3):
+            K.poa_consensus_batch(_poa_sets(7), PoaParams(band=16),
+                                  device="cpu")
+    spans = timer.spans
+    fill = spans[("D_define", "define.resolve", "poa.fill")]
+    apply = spans[("D_define", "define.resolve", "poa.apply")]
+    dispatch = spans[("D_define", "define.resolve", "poa.dispatch")]
+    assert obs.rounds == 3 and fill[0] == dispatch[0] >= 3
+    assert dispatch[2] == sum(c[0] for c in obs.chunks)
+    assert obs.fill_s == fill[1] and obs.apply_s == apply[1]
+    assert fill[1] > 0 and apply[1] > 0
+    rows = {(st, par, n): sec for st, par, n, _c, sec, _i in
+            _span_rows(tmp_path)}
+    assert rows[("D_define", "define.resolve", "poa.fill")] == \
+        pytest.approx(obs.fill_s, abs=1e-6)
+    assert rows[("D_define", "define.resolve", "poa.apply")] == \
+        pytest.approx(obs.apply_s, abs=1e-6)
+
+
+def test_profiler_seconds_are_recorded_under_run(tmp_path, monkeypatch,
+                                                 fake_profile):
+    """The profiler's start, stop and export (0.3 s each way here) go to
+    span profiler under run, and stay out of the stage seconds; a span
+    inside the traced stage enters record_function."""
+    monkeypatch.setenv("MANDO_TPU_PROFILE", str(tmp_path / "trace"))
+    entered = []
+
+    class Mark:
+        def __init__(self, name):
+            entered.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Mark)
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer:
+        with timer.stage("A_alignment"):
+            with span("align.seed"):
+                pass
+        with span("checkpoint_wait"):
+            pass
+    assert entered == ["align.seed"]
+    assert timer.times["A_alignment"] < 0.3
+    calls, seconds, items = timer.spans[("run", "", "profiler")]
+    assert calls == 2 and seconds >= 0.6 and items is None
+
+
+def test_span_costs_little_without_the_hook(monkeypatch):
+    """10^5 empty spans under a running timer without MANDO_TPU_PROFILE:
+    under 5 us each (the best of five repeats, against a loaded host)."""
+    monkeypatch.delenv("MANDO_TPU_PROFILE", raising=False)
+    timer = StageTimer(None)
+    best = float("inf")
+    with timer:
+        with timer.stage("A_alignment"):
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(100_000):
+                    with span("align.seed"):
+                        pass
+                best = min(best, (time.perf_counter() - t0) / 100_000)
+    assert timer.spans[("A_alignment", "", "align.seed")][0] == 500_000
+    assert best < 5e-6, best
 
 
 def _event(cat, name, t0, t1, **kw):
