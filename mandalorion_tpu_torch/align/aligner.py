@@ -12,7 +12,8 @@ reference's `SpliceAligner.map_batch` does:
 - chain 'device' (any DP): the staged route (the reference's
   `_map_batch_device_staged`), per batch
 
-      C seed (native_stage_seed_batch) -> chain DP (chain_kernel.chain_rows)
+      C seed (native_stage_seed_batch, on the run's threads)
+        -> chain DP (chain_kernel.chain_rows)
         -> C fill (native_stage_fill_batch)
         -> affine-gap DP + traceback (kernels.solve_dp_fused)
         -> C emit (native_stage_emit_batch)
@@ -53,6 +54,7 @@ before the C stage collapses and packs their anchors
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -76,7 +78,8 @@ from mandalorion_tpu_torch.io.psl import PslRecord
 from mandalorion_tpu_torch.native import (
     load_native, native_align_read, native_align_read_runs, native_emit_psl,
     native_seed_chain2, native_stage_emit_batch, native_stage_fill_batch,
-    native_stage_seed_anchors, native_stage_seed_batch)
+    native_stage_seed_anchors, native_stage_seed_batch,
+    native_stage_seed_threads)
 from mandalorion_tpu_torch.parallel.dist import (
     IndexShards, place_index_shards, shard_index_arrays)
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
@@ -693,17 +696,19 @@ class TorchSpliceAligner(SpliceAligner):
     module docstring) on `device` ('cuda' or 'cpu'; the CPU runs the
     kernels' plain PyTorch versions), or on the mesh's devices when one
     is installed. `host_twin()` returns a plain host SpliceAligner
-    sharing the index (replicated)."""
+    sharing the index (replicated). `threads` is the run's host thread
+    count (`-t`): the C seed stage runs on as many of the host's cores
+    (`self.threads`)."""
 
     def __init__(self, genome, cfg: Optional[AlignConfig] = None,
-                 device="cuda"):
+                 device="cuda", threads: int = 1):
         dev = resolve_device(device)
         super().__init__(genome, cfg)
-        self._bind(dev)
+        self._bind(dev, threads)
 
     @classmethod
     def from_aligner(cls, aligner: SpliceAligner, device="cuda",
-                     cfg: Optional[AlignConfig] = None
+                     cfg: Optional[AlignConfig] = None, threads: int = 1
                      ) -> "TorchSpliceAligner":
         """A port aligner sharing `aligner`'s GenomeIndex (no rebuild),
         with `aligner`'s configuration or `cfg` (whose index parameters,
@@ -713,7 +718,7 @@ class TorchSpliceAligner(SpliceAligner):
         self.cfg = aligner.cfg if cfg is None else cfg
         self.index = aligner.index
         self.max_occ = aligner.max_occ
-        self._bind(dev)
+        self._bind(dev, threads)
         return self
 
     def host_twin(self) -> SpliceAligner:
@@ -723,14 +728,16 @@ class TorchSpliceAligner(SpliceAligner):
         twin.max_occ = self.max_occ
         return twin
 
-    def _bind(self, device: torch.device) -> None:
+    def _bind(self, device: torch.device, threads: int = 1) -> None:
         """Upload the genome codes once to `device` and, under a pipeline
         mesh, to each distinct mesh device; with index_backend 'sharded'
         under a mesh, place this process's hash-range index shards on
         their mesh devices (without a mesh the index stays replicated, as
-        in the reference)."""
+        in the reference). The C seed stage takes min(threads, the
+        host's cores)."""
         align_backends(self.cfg)
         self.device = device
+        self.threads = max(1, min(int(threads), os.cpu_count() or 1))
         self.genome_codes = genome_tensor(self.index.seq_codes, device)
         self._genome_on = {device: self.genome_codes}
         self._genome()
@@ -831,7 +838,8 @@ class TorchSpliceAligner(SpliceAligner):
         n_seg, (qs, qe, ts, te, cov)). With a sharded index the lookup runs
         over the mesh (`sharded_seed_hits`) and the C stage collapses,
         prepares and packs its anchors (native_stage_seed_anchors): the
-        same tuple."""
+        same tuple. The C stage runs on `seed_threads(len(reads))`
+        threads."""
         require_native("the C seed stage (TorchSpliceAligner.seed_batch)")
         if self.index.bucket_lo is None and self._sharded is None:
             raise ValueError("the C seed stage (TorchSpliceAligner."
@@ -847,8 +855,16 @@ class TorchSpliceAligner(SpliceAligner):
             return codes_all, read_off, self._seed_sharded(code_list)
         seeded = native_stage_seed_batch(
             codes_all, read_off, cfg.kmer, cfg.window, self.max_occ, 100,
-            self.index, cfg.max_intron)
+            self.index, cfg.max_intron, threads=self.threads)
         return codes_all, read_off, seeded
+
+    def seed_threads(self, n_reads: int) -> int:
+        """The threads `seed_batch` seeds `n_reads` reads on: 1 with a
+        sharded index (its C stage is serial) or a batch too small to
+        split."""
+        if self._sharded is not None:
+            return 1
+        return native_stage_seed_threads(n_reads, self.threads)
 
     def _seed_sharded(self, code_list):
         cfg = self.cfg
@@ -977,6 +993,10 @@ class TorchSpliceAligner(SpliceAligner):
         cfg.dp_backend (`dp_batch`), C emit."""
         with span("align.seed", len(reads)):
             codes_all, read_off, seeded = self.seed_batch(reads)
+        # a count, not a time: its items over its calls are the mean
+        # threads a seed call ran on
+        with span("align.seed.threads", self.seed_threads(len(reads))):
+            pass
         if seeded[0] == 0:
             return []
         with span("align.chain", int(seeded[0])):

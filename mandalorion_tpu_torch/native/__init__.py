@@ -134,7 +134,9 @@ def load_native() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int32,                   # pos, u32
             ctypes.c_void_p, ctypes.c_int64,                   # chroms
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,    # intr,seg,cap
-            ] + [ctypes.c_void_p] * 10
+            ] + [ctypes.c_void_p] * 10 + [ctypes.c_int32]      # threads
+        lib.stage_seed_threads_c.restype = ctypes.c_int32
+        lib.stage_seed_threads_c.argtypes = [ctypes.c_int64, ctypes.c_int32]
         lib.stage_seed_anchors_c.restype = ctypes.c_int64
         lib.stage_seed_anchors_c.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # off,q,g
@@ -707,12 +709,14 @@ def _stage_candidates(call, n_reads: int, max_segments: int):
 def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
                             k: int, w: int, max_occ: int, merge_gap: int,
                             index, max_intron: int,
-                            max_segments: int = 512):
+                            max_segments: int = 512, threads: int = 1):
     """Phase A: seed + prepare every (read, orientation, chromosome)
     candidate in one C call, packed straight into the chain kernel's
     zero-padded (cap, max_segments) int32 input rows. Returns
     (n_cand, cand_read, cand_strand, cand_chrom, cand_tbase, cand_nseg,
-    (qs, qe, ts, te, cov))."""
+    (qs, qe, ts, te, cov)), the same for every `threads`: the call seeds
+    on `native_stage_seed_threads(n_reads, threads)` threads of its own,
+    all joined before it returns."""
     lib = load_native()
     if lib is None:
         return None
@@ -725,8 +729,19 @@ def native_stage_seed_batch(codes_all: np.ndarray, read_off: np.ndarray,
             index.sorted_hashes.ctypes.data, index.bucket_lo.ctypes.data,
             index.bucket_bits, index.sorted_positions.ctypes.data,
             pos_is_u32, index.chrom_offsets.ctypes.data,
-            len(index.chrom_offsets), max_intron, max_segments, cap, *out),
+            len(index.chrom_offsets), max_intron, max_segments, cap, *out,
+            threads),
         n_reads, max_segments)
+
+
+def native_stage_seed_threads(n_reads: int, threads: int) -> Optional[int]:
+    """The threads `native_stage_seed_batch` runs `n_reads` reads on when
+    given `threads`: at most one a block of 16 reads, and 1 (its serial
+    loop) below two blocks."""
+    lib = load_native()
+    if lib is None:
+        return None
+    return int(lib.stage_seed_threads_c(n_reads, threads))
 
 
 def native_stage_seed_anchors(anchor_off: np.ndarray, anchor_q: np.ndarray,

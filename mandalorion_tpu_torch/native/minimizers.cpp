@@ -10,6 +10,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <functional>
 #include <limits>
 #include <memory>
 #include <thread>
@@ -1431,47 +1432,100 @@ struct CandidateRows {
     int32_t *qs, *qe, *ts, *te, *cov;
 };
 
+// Candidate row `at` from its prepared segments g[0, n): t normalized to
+// their min t_start.
+static void write_candidate(CandidateRows& o, int64_t at, int64_t read,
+                            int32_t strand, int32_t chrom, const Seg* g,
+                            size_t n) {
+    int64_t tbase = g[0].ts;
+    for (size_t i = 0; i < n; i++)
+        tbase = g[i].ts < tbase ? g[i].ts : tbase;
+    o.read[at] = (int32_t)read;
+    o.strand[at] = (int8_t)strand;
+    o.chrom[at] = chrom;
+    o.tbase[at] = tbase;
+    o.nseg[at] = (int32_t)n;
+    int64_t row = at * o.max_segments;
+    for (size_t i = 0; i < n; i++) {
+        const Seg& s = g[i];
+        o.qs[row + i] = (int32_t)s.qs;
+        o.qe[row + i] = (int32_t)s.qe;
+        o.ts[row + i] = (int32_t)(s.ts - tbase);
+        o.te[row + i] = (int32_t)(s.te - tbase);
+        // score_len: anchor-covered length, span when unknown
+        // (Segment.score_len)
+        o.cov[row + i] = (int32_t)(s.cov > 0 ? s.cov : s.qe - s.qs);
+    }
+}
+
 // One (read, orientation)'s segments (sorted by chromosome, as
 // collapse_anchor_runs leaves them) as candidates, one a chromosome in
-// ascending order: prepare_segments applied, t normalized to the
-// candidate's min t_start. Counts every candidate in nc, writes those
-// below the cap.
-static void pack_candidates(const std::vector<Seg>& segs, int64_t read,
-                            int32_t strand, int64_t max_intron,
-                            std::vector<Seg>& group, CandidateRows& o,
-                            int64_t& nc) {
+// ascending order: prepare_segments applied to each chromosome's group,
+// which put(chrom, group) then takes.
+static void for_each_candidate(
+    const std::vector<Seg>& segs, int64_t max_intron, int64_t max_segments,
+    std::vector<Seg>& group,
+    const std::function<void(int32_t, const std::vector<Seg>&)>& put) {
     size_t at = 0;
     while (at < segs.size()) {
         int32_t c = segs[at].chrom;
         group.clear();
         while (at < segs.size() && segs[at].chrom == c)
             group.push_back(segs[at++]);
-        prepare_segs(group, max_intron, o.max_segments);
+        prepare_segs(group, max_intron, max_segments);
         if (group.empty()) continue;  // cannot happen (prepare never
         // empties a non-empty group); defensive only
-        if (nc < o.cap) {
-            int64_t tbase = group[0].ts;
-            for (const Seg& s : group)
-                tbase = s.ts < tbase ? s.ts : tbase;
-            o.read[nc] = (int32_t)read;
-            o.strand[nc] = (int8_t)strand;
-            o.chrom[nc] = c;
-            o.tbase[nc] = tbase;
-            o.nseg[nc] = (int32_t)group.size();
-            int64_t row = nc * o.max_segments;
-            for (size_t i = 0; i < group.size(); i++) {
-                const Seg& s = group[i];
-                o.qs[row + i] = (int32_t)s.qs;
-                o.qe[row + i] = (int32_t)s.qe;
-                o.ts[row + i] = (int32_t)(s.ts - tbase);
-                o.te[row + i] = (int32_t)(s.te - tbase);
-                // score_len: anchor-covered length, span when unknown
-                // (Segment.score_len)
-                o.cov[row + i] = (int32_t)(s.cov > 0 ? s.cov : s.qe - s.qs);
-            }
-        }
-        nc++;
+        put(c, group);
     }
+}
+
+// for_each_candidate into the rows: counts every candidate in nc, writes
+// those below the cap.
+static void pack_candidates(const std::vector<Seg>& segs, int64_t read,
+                            int32_t strand, int64_t max_intron,
+                            std::vector<Seg>& group, CandidateRows& o,
+                            int64_t& nc) {
+    for_each_candidate(segs, max_intron, o.max_segments, group,
+                       [&](int32_t c, const std::vector<Seg>& g) {
+                           if (nc < o.cap)
+                               write_candidate(o, nc, read, strand, c,
+                                               g.data(), g.size());
+                           nc++;
+                       });
+}
+
+// Runs fn on n threads, the caller's among them, and joins them before it
+// returns: no thread outlives the native call (the pipeline forks after
+// it).
+static void run_on_threads(int32_t n, const std::function<void()>& fn) {
+    std::vector<std::thread> pool;
+    for (int32_t i = 1; i < n; i++) pool.emplace_back(fn);
+    fn();
+    for (auto& th : pool) th.join();
+}
+
+// stage_seed_batch_c's unit of work on threads: a block of consecutive
+// reads, claimed whole by one thread (reads of 0.3-7 kb balance over many
+// small blocks).
+static const int64_t SEED_BLOCK_READS = 16;
+
+// The candidates of one block of reads, in the rows' order, before they
+// are packed: candidate i's read, strand and chromosome, and its prepared
+// segments segs[off[i], off[i + 1]).
+struct CandidateBlock {
+    std::vector<int32_t> read, chrom;
+    std::vector<int8_t> strand;
+    std::vector<int64_t> off{0};
+    std::vector<Seg> segs;
+};
+
+// The threads stage_seed_batch_c runs n_reads reads on when given
+// n_threads: at most one a block, and 1 (the serial loop) below two
+// blocks.
+int32_t stage_seed_threads_c(int64_t n_reads, int32_t n_threads) {
+    int64_t blocks = (n_reads + SEED_BLOCK_READS - 1) / SEED_BLOCK_READS;
+    if (n_threads <= 1 || blocks < 2) return 1;
+    return blocks < n_threads ? (int32_t)blocks : n_threads;
 }
 
 // Phase A — seed every (read, orientation, chromosome) candidate and pack
@@ -1481,6 +1535,12 @@ static void pack_candidates(const std::vector<Seg>& segs, int64_t read,
 // -> '+','-' -> chromosome ascending. Caller provides ZEROED seg arrays
 // (padding rows must stay zero for the jit cache). Returns the candidate
 // count, or -needed when cap is too small.
+//
+// On stage_seed_threads_c(n_reads, n_threads) threads, started and joined
+// inside the call: each claims blocks of SEED_BLOCK_READS reads and seeds
+// them into the block's own buffer; then the blocks are packed in block
+// order, each from its first candidate's row on. The rows are the serial
+// loop's, byte for byte, for every thread count.
 int64_t stage_seed_batch_c(
     const uint8_t* codes_all, const int64_t* read_off, int64_t n_reads,
     int32_t k, int32_t w, int64_t max_occ, int32_t merge_gap,
@@ -1491,31 +1551,93 @@ int64_t stage_seed_batch_c(
     int32_t* cand_read, int8_t* cand_strand, int32_t* cand_chrom,
     int64_t* cand_tbase, int32_t* cand_nseg,
     int32_t* seg_qs, int32_t* seg_qe, int32_t* seg_ts, int32_t* seg_te,
-    int32_t* seg_cov) {
+    int32_t* seg_cov, int32_t n_threads) {
     static const uint8_t COMP[5] = {3, 2, 1, 0, 4};
     CandidateRows o{max_segments, cap, cand_read, cand_strand, cand_chrom,
                     cand_tbase, cand_nseg, seg_qs, seg_qe, seg_ts, seg_te,
                     seg_cov};
-    std::vector<uint8_t> rc;
-    std::vector<Seg> segs, group;
-    int64_t nc = 0;
-    for (int64_t r = 0; r < n_reads; r++) {
+    // read r's segments in orientation `strand` (1: reverse complement,
+    // built in rc)
+    auto seed_one = [&](int64_t r, int32_t strand, std::vector<uint8_t>& rc,
+                        std::vector<Seg>& segs) {
         const uint8_t* codes = codes_all + read_off[r];
         int64_t n = read_off[r + 1] - read_off[r];
-        for (int32_t strand = 0; strand < 2; strand++) {
-            const uint8_t* qc = codes;
-            if (strand == 1) {
-                rc.resize(n);
-                for (int64_t i = 0; i < n; i++)
-                    rc[i] = COMP[codes[n - 1 - i]];
-                qc = rc.data();
-            }
-            build_segments(qc, n, k, w, max_occ, merge_gap, sorted_hashes,
-                           bucket_lo, bucket_bits, sorted_positions,
-                           pos_is_u32, chrom_offsets, n_chroms, segs);
-            pack_candidates(segs, r, strand, max_intron, group, o, nc);
+        const uint8_t* qc = codes;
+        if (strand == 1) {
+            rc.resize(n);
+            for (int64_t i = 0; i < n; i++)
+                rc[i] = COMP[codes[n - 1 - i]];
+            qc = rc.data();
         }
+        build_segments(qc, n, k, w, max_occ, merge_gap, sorted_hashes,
+                       bucket_lo, bucket_bits, sorted_positions,
+                       pos_is_u32, chrom_offsets, n_chroms, segs);
+    };
+    const int32_t nthr = stage_seed_threads_c(n_reads, n_threads);
+    if (nthr == 1) {
+        std::vector<uint8_t> rc;
+        std::vector<Seg> segs, group;
+        int64_t nc = 0;
+        for (int64_t r = 0; r < n_reads; r++)
+            for (int32_t strand = 0; strand < 2; strand++) {
+                seed_one(r, strand, rc, segs);
+                pack_candidates(segs, r, strand, max_intron, group, o, nc);
+            }
+        return nc <= cap ? nc : -nc;
     }
+
+    const int64_t n_blocks =
+        (n_reads + SEED_BLOCK_READS - 1) / SEED_BLOCK_READS;
+    std::vector<CandidateBlock> blocks(n_blocks);
+    std::atomic<int64_t> next(0);
+    auto seeder = [&]() {
+        std::vector<uint8_t> rc;
+        std::vector<Seg> segs, group;
+        for (;;) {
+            int64_t b = next.fetch_add(1);
+            if (b >= n_blocks) break;
+            CandidateBlock& blk = blocks[b];
+            int64_t r1 = std::min((b + 1) * SEED_BLOCK_READS, n_reads);
+            for (int64_t r = b * SEED_BLOCK_READS; r < r1; r++)
+                for (int32_t strand = 0; strand < 2; strand++) {
+                    seed_one(r, strand, rc, segs);
+                    for_each_candidate(
+                        segs, max_intron, max_segments, group,
+                        [&](int32_t c, const std::vector<Seg>& g) {
+                            blk.read.push_back((int32_t)r);
+                            blk.strand.push_back((int8_t)strand);
+                            blk.chrom.push_back(c);
+                            blk.segs.insert(blk.segs.end(), g.begin(),
+                                            g.end());
+                            blk.off.push_back((int64_t)blk.segs.size());
+                        });
+                }
+        }
+    };
+    run_on_threads(nthr, seeder);
+
+    // block b's candidates take rows first[b] .. first[b + 1] - 1
+    std::vector<int64_t> first(n_blocks + 1, 0);
+    for (int64_t b = 0; b < n_blocks; b++)
+        first[b + 1] = first[b] + (int64_t)blocks[b].read.size();
+    const int64_t nc = first[n_blocks];
+    next.store(0);
+    auto packer = [&]() {
+        for (;;) {
+            int64_t b = next.fetch_add(1);
+            if (b >= n_blocks) break;
+            CandidateBlock& blk = blocks[b];
+            for (size_t i = 0; i < blk.read.size(); i++) {
+                int64_t at = first[b] + (int64_t)i;
+                if (at >= cap) break;
+                write_candidate(o, at, blk.read[i], blk.strand[i],
+                                blk.chrom[i], blk.segs.data() + blk.off[i],
+                                (size_t)(blk.off[i + 1] - blk.off[i]));
+            }
+            blk = CandidateBlock();
+        }
+    };
+    run_on_threads(nthr, packer);
     return nc <= cap ? nc : -nc;
 }
 

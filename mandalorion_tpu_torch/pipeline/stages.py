@@ -36,7 +36,9 @@ code only (module A's host route, P, D's prepare phase, F) may fork even
 after CUDA is initialised, because they never touch the inherited CUDA
 context; workers that would run device code ask `runtime.fork_ok()`,
 which refuses once CUDA is initialised (a context does not survive
-fork). Either kind needs a single-threaded parent.
+fork). Either kind needs a single-threaded parent. The threads of a
+native call (module A's C seed stage on the device routes) are joined
+before the call returns, so no fork meets them.
 """
 
 from __future__ import annotations
@@ -628,13 +630,15 @@ def _run_stages(timer: StageTimer, paths: Paths, genome_path: str,
                 genome = fastx_to_dict(genome_path)
             with span("index.load"):
                 aligner = (TorchSpliceAligner(genome, cfg.align,
-                                              device=device)
+                                              device=device,
+                                              threads=cfg.threads)
                            if on_device else SpliceAligner(genome, cfg.align))
     if "A" in cfg.modules:
         with timer.stage("A_alignment"):
             # a route on the device: one process (a CUDA context does not
             # survive fork), whose read batch then grows to
-            # max(batch_reads, n_reads / 3); host route: cfg.threads
+            # max(batch_reads, n_reads / 3) and whose C seed stage runs on
+            # the aligner's cfg.threads threads; host route: cfg.threads
             # forked workers
             module_a(paths, cfg.replace(threads=1) if on_device
                      else cfg, fasta_files, genome_path, aligner)

@@ -160,3 +160,134 @@ def test_staged_seed_capacity_retry_and_cross_chrom_candidates(tmp_path):
     out = dev._map_batch_device_staged(reads)
     assert out is not None
     assert [str(r) for r in out] == [str(r) for r in host.map_batch(reads)]
+
+
+# ------------------------------------------------ the port's C seed stage
+# on threads: mandalorion_tpu_torch.native.native_stage_seed_batch splits
+# its reads into blocks of 16 over the threads it is given, and must give
+# the serial call's candidates bit for bit.
+
+def _port_seed_inputs(genome, reads):
+    """(index, max_occ, codes_all, read_off) of `reads` on the port's
+    index of `genome`."""
+    import numpy as np
+    from mandalorion_tpu_torch.align.aligner import SpliceAligner as Port
+    from mandalorion_tpu_torch.align.encode import encode
+    from mandalorion_tpu_torch.config import AlignConfig as PortConfig
+    aligner = Port(genome, PortConfig())
+    codes = [encode(seq) for _name, seq in reads]
+    read_off = np.zeros(len(reads) + 1, np.int64)
+    np.cumsum([len(c) for c in codes], out=read_off[1:])
+    codes_all = (np.concatenate(codes) if codes
+                 else np.zeros(0, np.uint8))
+    return aligner, codes_all, read_off
+
+
+def _seed_case(case, tmp_path):
+    """The genome and reads of one case of the thread-count test."""
+    import numpy as np
+    import synthdata
+    from mandalorion_tpu.io.fastx import revcomp
+    if case == "many_blocks":
+        # 600 reads: 38 blocks, more threads than this host's cores at
+        # t8 and above
+        return _dataset(tmp_path, seed=4, reads_per_gene=200)
+    if case in ("simulated", "empty", "short_and_no_hit"):
+        genome, reads = _dataset(tmp_path, seed=3)
+        if case == "empty":
+            return genome, []
+        if case == "short_and_no_hit":
+            # a read shorter than k and reads with no hit, in the first,
+            # a middle and the last block
+            odd = [("short", "ACGTACG"), ("nohit", "ACGT" * 40),
+                   ("empty_read", "")]
+            reads = odd[:1] + reads[:30] + odd[1:2] + reads[30:] + odd[2:]
+        return genome, reads
+    rng = np.random.default_rng(5)
+    if case == "multichromosome":
+        genomes, reads = {}, []
+        for ci in range(3):
+            genome = synthdata.make_genome(25_000, seed=300 + ci)
+            exons = [(4000, 4400), (5500, 6000), (7500, 7900)]
+            strand = "+" if ci % 2 == 0 else "-"
+            genome = synthdata.plant_introns(genome, exons, strand=strand)
+            t = synthdata.transcript_seq(genome, exons)
+            if strand == "-":
+                t = revcomp(t)
+            reads += [(f"c{ci}r{k}", synthdata.mutate_read(t, rng, 0.03)[0])
+                      for k in range(15)]
+            genomes[f"chr{ci + 1}"] = genome
+        order = rng.permutation(len(reads))
+        return genomes, [reads[i] for i in order]
+    # "homologs": every read seeds on all six chromosomes, more
+    # candidates than the stage's first cap of max(64, 2 * n_reads)
+    core = synthdata.make_genome(6000, seed=77)
+    genomes = {}
+    for ci in range(6):
+        g = list(core)
+        for _ in range(ci * 25):
+            g[int(rng.integers(0, len(g)))] = "ACGT"[int(rng.integers(0, 4))]
+        genomes[f"chr{ci + 1}"] = "".join(g)
+    reads = [(f"r{k}", synthdata.mutate_read(core[500:3500], rng, 0.02)[0])
+             for k in range(40)]
+    return genomes, reads
+
+
+@pytest.mark.parametrize("threads", [2, 3, 8, 1000],
+                         ids=["t2", "t3", "t8", "more_than_reads"])
+@pytest.mark.parametrize("case", ["simulated", "empty", "short_and_no_hit",
+                                  "multichromosome", "homologs",
+                                  "many_blocks"])
+def test_port_seed_batch_same_for_every_thread_count(tmp_path, case,
+                                                     threads):
+    """native_stage_seed_batch on `threads` threads gives the serial
+    call's n_cand and all seven arrays bit for bit; with a cap too small
+    the C entry returns the serial call's -needed, and the rows below
+    the cap are the serial call's too."""
+    import numpy as np
+    from mandalorion_tpu_torch import native
+    genome, reads = _seed_case(case, tmp_path)
+    aligner, codes_all, read_off = _port_seed_inputs(genome, reads)
+    cfg = aligner.cfg
+
+    def seed(t):
+        return native.native_stage_seed_batch(
+            codes_all, read_off, cfg.kmer, cfg.window, aligner.max_occ, 100,
+            aligner.index, cfg.max_intron, threads=t)
+
+    want, got = seed(1), seed(threads)
+    used = native.native_stage_seed_threads(len(reads), threads)
+    assert used == (1 if len(reads) <= 16
+                    else min(threads, -(-len(reads) // 16)))
+    if case != "empty":
+        assert used > 1 and want[0] > 0
+    assert got[0] == want[0]
+    flat = lambda out: list(out[1:6]) + list(out[6])
+    for a, b in zip(flat(got), flat(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    # the C entry itself, at a cap below the candidates' count
+    lib = native.load_native()
+    index = aligner.index
+    pos_u32 = 1 if index.sorted_positions.dtype == np.uint32 else 0
+    cap = max(1, want[0] // 3)
+
+    def at_cap(t):
+        out = [np.zeros(cap, np.int32), np.zeros(cap, np.int8),
+               np.zeros(cap, np.int32), np.zeros(cap, np.int64),
+               np.zeros(cap, np.int32)] + \
+            [np.zeros((cap, 512), np.int32) for _ in range(5)]
+        n = lib.stage_seed_batch_c(
+            codes_all.ctypes.data, read_off.ctypes.data, len(reads),
+            cfg.kmer, cfg.window, aligner.max_occ, 100,
+            index.sorted_hashes.ctypes.data, index.bucket_lo.ctypes.data,
+            index.bucket_bits, index.sorted_positions.ctypes.data, pos_u32,
+            index.chrom_offsets.ctypes.data, len(index.chrom_offsets),
+            cfg.max_intron, 512, cap, *(o.ctypes.data for o in out), t)
+        return n, out
+
+    n1, rows1 = at_cap(1)
+    nt, rows_t = at_cap(threads)
+    assert n1 == nt == (want[0] if want[0] <= cap else -want[0])
+    for a, b in zip(rows_t, rows1):
+        assert np.array_equal(a, b)

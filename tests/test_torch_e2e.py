@@ -12,6 +12,7 @@ run the port's `--consensus_backend device` (the plain POA forward costs
 about a millisecond a graph row on the CPU)."""
 
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -213,3 +214,42 @@ def test_thread_count_byte_determinism_matches_reference(tmp_path):
     assert all(want.values())
     for key, got in blobs.items():
         assert got == want, key
+
+
+def test_staged_seed_threads_byte_identical(tmp_path):
+    """The port's CLI on its default route (module A staged: the C seed
+    stage, the chain and DP kernels' plain versions) with -t 1 and -t 4,
+    each in a fresh process: the seven files byte-identical. With -t 4
+    the seed stage ran on more than one thread a call, and the run went
+    on to fork module D's prepare pool after it."""
+    args = cases.two_sample(str(tmp_path)) + ["-R", "3"]
+    # the stage open at each fork of the run, printed as its last line
+    code = ("import json, os, sys\n"
+            "from mandalorion_tpu_torch.pipeline import observe\n"
+            "from mandalorion_tpu_torch.pipeline.cli import main\n"
+            "forks = []\n"
+            "os.register_at_fork(before=lambda: forks.append(\n"
+            "    observe._ACTIVE and observe._ACTIVE._stage))\n"
+            "rc = main(sys.argv[1:])\n"
+            "print(json.dumps(forks))\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    outs, forks, seed_threads = {}, {}, {}
+    for t in ("1", "4"):
+        outs[t] = str(tmp_path / f"t{t}")
+        r = subprocess.run(
+            [sys.executable, "-c", code, "-p", outs[t], *args, "-t", t,
+             "--device", "cpu"],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        assert r.returncode == 0, r.stderr[-3000:]
+        forks[t] = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(os.path.join(outs[t], "tmp", "spans.tsv")) as fh:
+            rows = [line.rstrip("\n").split("\t") for line in fh]
+        seed_threads[t] = [(int(calls), int(items)) for
+                           stage, _p, name, calls, _s, items in rows[1:]
+                           if name == "align.seed.threads"]
+    assert artifacts(outs["4"]) == artifacts(outs["1"])
+    assert seed_threads["1"] == [(1, 1)]
+    [(calls, items)] = seed_threads["4"]
+    assert calls == 1 and items == min(3, os.cpu_count())  # 38 reads
+    assert "D_define" in forks["4"]

@@ -304,9 +304,9 @@ def test_trace_that_cannot_start_raises(tmp_path, monkeypatch):
 # route's plain versions, module D on the native engine), by stage
 ROUTE_SPANS = {
     "index_build": {"index.genome", "index.load"},
-    "A_alignment": {"align.read", "align.seed", "align.chain", "align.fill",
-                    "align.dp", "align.emit", "align.records",
-                    "align.write"},
+    "A_alignment": {"align.read", "align.seed", "align.seed.threads",
+                    "align.chain", "align.fill", "align.dp", "align.emit",
+                    "align.records", "align.write"},
     "D_define": {"define.prepare", "define.resolve", "define.write"},
     "F_filter": {"filter.genome", "filter.realign", "filter.chroms",
                  "filter.write"},
@@ -346,7 +346,13 @@ def test_spans_tsv_names_each_span_of_the_route(runs, run):
         want["run"].add("profiler")
     assert got == want
     items = {(st, n): i for st, _p, n, _c, _s, i in rows}
+    calls = {(st, n): c for st, _p, n, c, _s, _i in rows}
     assert items[("A_alignment", "align.seed")] == 60
+    # -t 2 over 60 reads: the C seed stage ran on two threads a call
+    seeds = calls[("A_alignment", "align.seed")]
+    assert calls[("A_alignment", "align.seed.threads")] == seeds
+    assert items[("A_alignment", "align.seed.threads")] == \
+        seeds * min(2, os.cpu_count())
     assert items[("A_alignment", "align.read")] == 60
     assert items[("A_alignment", "align.records")] == \
         items[("A_alignment", "align.write")] == 60
@@ -415,6 +421,39 @@ def test_span_records_under_its_stage_and_parent(tmp_path):
     assert list(_stage_seconds(tmp_path)) == ["A_alignment", "D_define"]
     assert observe.RUNS[-1] is timer and timer.ended >= timer.started
     assert observe._ACTIVE is None
+
+
+@pytest.mark.parametrize("threads,n_reads,used", [
+    (1, 60, 1), (4, 60, 4), (4, 16, 1), (64, 60, 4)],
+    ids=["serial", "t4", "one_block", "more_than_blocks"])
+def test_seed_threads_span_counts_the_threads_a_seed_call_ran_on(
+        tmp_path, threads, n_reads, used):
+    """After staged map_batch calls under a running timer, span
+    align.seed.threads has the seed calls' count and, over them, the
+    threads each ran on (1 on the serial path: one thread, or one block
+    of 16 reads); the records are the serial call's."""
+    from mandalorion_tpu_torch.align.aligner import TorchSpliceAligner
+    from mandalorion_tpu_torch.config import AlignConfig
+    from mandalorion_tpu_torch.io.fastx import fastx_to_dict, read_fastx
+    if load_native() is None:
+        pytest.skip("native library unavailable")
+    make_dataset(str(tmp_path), n_genes=3, n_reads_per_gene=20,
+                 genome_len=90_000, seed=0)
+    genome = fastx_to_dict(str(tmp_path / "genome.fasta"))
+    reads = [(n, s) for n, s, _q in
+             read_fastx(str(tmp_path / "reads.fasta"))][:n_reads]
+    serial = TorchSpliceAligner(genome, AlignConfig(), device="cpu")
+    aligner = TorchSpliceAligner.from_aligner(serial, device="cpu",
+                                              threads=threads)
+    used = min(used, os.cpu_count())
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer.stage("A_alignment"):
+        got = [aligner.map_batch(reads) for _ in range(2)]
+    rows = {(st, n): (c, i) for st, _p, n, c, _s, i in _span_rows(tmp_path)}
+    assert rows[("A_alignment", "align.seed")] == (2, 2 * n_reads)
+    assert rows[("A_alignment", "align.seed.threads")] == (2, 2 * used)
+    want = [str(r) for r in serial.map_batch(reads)]
+    assert want and all([str(r) for r in out] == want for out in got)
 
 
 def test_span_without_a_running_timer_records_nothing(tmp_path):
