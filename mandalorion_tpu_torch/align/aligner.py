@@ -83,7 +83,7 @@ from mandalorion_tpu_torch.native import (
 from mandalorion_tpu_torch.parallel.dist import (
     IndexShards, place_index_shards, shard_index_arrays)
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
-from mandalorion_tpu_torch.pipeline.observe import span
+from mandalorion_tpu_torch.pipeline.observe import record, span
 from mandalorion_tpu_torch.runtime import require_native, resolve_device
 
 
@@ -995,8 +995,7 @@ class TorchSpliceAligner(SpliceAligner):
             codes_all, read_off, seeded = self.seed_batch(reads)
         # a count, not a time: its items over its calls are the mean
         # threads a seed call ran on
-        with span("align.seed.threads", self.seed_threads(len(reads))):
-            pass
+        record("align.seed.threads", items=self.seed_threads(len(reads)))
         if seeded[0] == 0:
             return []
         with span("align.chain", int(seeded[0])):

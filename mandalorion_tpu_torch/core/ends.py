@@ -135,12 +135,15 @@ def define_start_end_sites(
     minimum_feature_count: int,
     rng: Optional[np.random.Generator] = None,
     ends_subsample: int = 10_000,
+    stats: Optional[Dict[str, int]] = None,
 ) -> Dict[str, IsoformGroup]:
     """Split each junction identity into isoforms by (start-peak, end-peak)
     pair (SDC.py:797-868). Peak calling runs on a subsample capped at
     ends_subsample (seeded rng — the reference's unseeded subsample only
     engages above the cap); binning uses ALL reads. Isoform names are
-    stringified global counters in first-appearance order."""
+    stringified global counters in first-appearance order. `stats`, when
+    given, gains under "end_splits" the identities split into two
+    isoforms or more."""
     all_groups = group_mono_exon_transcripts(spliced, mono, reads)
     isoform_counter = 0
     iso_numbers: Dict[str, int] = {}
@@ -173,6 +176,7 @@ def define_start_end_sites(
         med_left = {k: float(np.median(v)) for k, v in left_extras.items()}
         med_right = {k: float(np.median(v)) for k, v in right_extras.items()}
 
+        formed = 0
         for left, right, p in matched:
             new_identity = (f"{identity}_{p.direction}_{left}_{right}_"
                             f"{round(med_left[(left, right)], 2)}_"
@@ -180,8 +184,11 @@ def define_start_end_sites(
             if new_identity not in iso_numbers:
                 isoform_counter += 1
                 iso_numbers[new_identity] = isoform_counter
+                formed += 1
             name = str(iso_numbers[new_identity])
             if name not in iso_dict:
                 iso_dict[name] = IsoformGroup(iso_numbers[new_identity])
             iso_dict[name].read_indices.append(p.read_index)
+        if stats is not None and formed > 1:
+            stats["end_splits"] = stats.get("end_splits", 0) + 1
     return iso_dict

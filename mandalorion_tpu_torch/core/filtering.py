@@ -13,7 +13,8 @@ debugging API (SURVEY §5.5).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Sequence, Set, Tuple
+from time import perf_counter
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from mandalorion_tpu_torch.config import PipelineConfig
 
@@ -32,6 +33,7 @@ class ChromIsoforms:
     lines: Dict[str, List[str]] = field(default_factory=dict)   # psl fields
     coords: Dict[str, List[int]] = field(default_factory=dict)  # [s,e,s,e..]
     direction: Dict[str, str] = field(default_factory=dict)
+    parsed: int = 0         # the chromosome's isoforms, kept or not
 
 
 def parse_clean_psl(psl_path: str, chromosome: str, cfg: PipelineConfig,
@@ -91,6 +93,7 @@ def parse_clean_psl(psl_path: str, chromosome: str, cfg: PipelineConfig,
             t.lines[name] = a
             t.coords[name] = coords
             t.direction[name] = direction
+    t.parsed = len(done)
     return t
 
 
@@ -156,8 +159,8 @@ def _overlap_len(merged: List[Tuple[int, int]], s: int, e: int) -> int:
 
 def containment_filter(t: ChromIsoforms, isoform_names: Sequence[str],
                        chr_sequence: str, polyA_whitelist: Dict[str, Set[int]],
-                       cfg: PipelineConfig, reason: Reason = _noop
-                       ) -> List[str]:
+                       cfg: PipelineConfig, reason: Reason = _noop,
+                       drops: Optional[Dict[str, int]] = None) -> List[str]:
     """Containment + polyA filter (filterIsoforms.py:126-280).
 
     An isoform is dropped when (a) other isoforms extend >= 10 bases into
@@ -166,7 +169,10 @@ def containment_filter(t: ChromIsoforms, isoform_names: Sequence[str],
     (b) all its (end-trimmed, ±sw-padded) bases and all its junctions are
     contained in a higher-abundance isoform with abundance ratio below
     minimum_internal_ratio (or nearly identical ends with lower abundance).
+    `drops`, when given, counts the isoforms dropped by each rule: "polya"
+    (a), "internal" and "identical" (b).
     """
+    drops = {} if drops is None else drops
     sw = cfg.splice_site_window
     ib = cfg.internal_buffer
     lo_off, hi_off = cfg.polya_scan_offsets
@@ -231,6 +237,7 @@ def containment_filter(t: ChromIsoforms, isoform_names: Sequence[str],
                        f"whitelist")
             else:
                 decision = False
+                drops["polya"] = drops.get("polya", 0) + 1
                 reason(f"{name} filtered because at least one isoform "
                        f"(including {extend[0]}) is extending beyond its "
                        f"polyA site and the genomic A content at its putative "
@@ -278,6 +285,7 @@ def containment_filter(t: ChromIsoforms, isoform_names: Sequence[str],
                            f"{match_abundance} reads for the isoform "
                            f"containing it which is below that internal ratio "
                            f"of {cfg.minimum_internal_ratio}")
+                    drops["internal"] = drops.get("internal", 0) + 1
                     decision = False
                     break
                 if (abs(coords[0] - m_coords[0]) < cfg.downstream_buffer
@@ -287,6 +295,7 @@ def containment_filter(t: ChromIsoforms, isoform_names: Sequence[str],
                     reason(f"{name} filtered because it is internal (all "
                            f"bases and splice junctions contained in) and "
                            f"almost identical to {match}")
+                    drops["identical"] = drops.get("identical", 0) + 1
                     decision = False
                     break
         if decision:
@@ -312,11 +321,26 @@ def read_polya_whitelist(bed_path: str, chromosome: str
 
 def process_chromosome(chromosome: str, clean_psl_path: str,
                        chr_sequence: str, polya_bed: str,
-                       cfg: PipelineConfig, reason: Reason = _noop
+                       cfg: PipelineConfig, reason: Reason = _noop,
+                       stats: Optional[dict] = None
                        ) -> Tuple[List[str], ChromIsoforms]:
-    """Full per-chromosome filter chain (filterIsoforms.process_chr)."""
+    """Full per-chromosome filter chain (filterIsoforms.process_chr).
+    `stats`, when given, gains the seconds of the ratio rule and of the
+    containment and polyA rule ("ratio_s", "contain_s"), the isoforms each
+    kept ("ratio_kept", "contain_kept") and the drops of each rule
+    ("drops": "absolute", "ratio", "polya", "internal", "identical")."""
     wl = read_polya_whitelist(polya_bed, chromosome)
     t = parse_clean_psl(clean_psl_path, chromosome, cfg, reason)
+    drops = {"absolute": t.parsed - len(t.names), "polya": 0,
+             "internal": 0, "identical": 0}
+    t0 = perf_counter()
     kept = ratio_filter(t, t.names, cfg, reason)
-    kept = containment_filter(t, kept, chr_sequence, wl, cfg, reason)
+    t1 = perf_counter()
+    drops["ratio"] = len(t.names) - len(kept)
+    ratio_kept = len(kept)
+    kept = containment_filter(t, kept, chr_sequence, wl, cfg, reason, drops)
+    if stats is not None:
+        stats.update(ratio_s=t1 - t0, contain_s=perf_counter() - t1,
+                     ratio_kept=ratio_kept, contain_kept=len(kept),
+                     drops=drops)
     return kept, t

@@ -7,6 +7,8 @@ columns `stage`, `seconds`). Inside the stages, `span(name, items)` times
 a named part of the work; the spans go into tmp/spans.tsv beside it, one
 row a (stage, span): `stage parent span calls seconds items`, `stage`
 being `run` outside every stage and `parent` the span open around it.
+`record(name, seconds, items)` adds a row's call for work timed
+elsewhere (forked workers' seconds) or counted (no seconds).
 
 With MANDO_TPU_PROFILE=<dir> in the environment when the timer is built,
 every stage runs under torch.profiler and writes <dir>/<stage>/
@@ -94,15 +96,22 @@ class span:
         if self._mark is not None:
             self._mark.__exit__(*exc)
         timer._open.pop()
-        key = (timer._stage or "run", self._parent, self.name)
-        row = timer.spans.get(key)
-        if row is None:
-            timer.spans[key] = [1, dt, self.items]
-        else:
-            row[0] += 1
-            row[1] += dt
-            if self.items is not None:
-                row[2] = (row[2] or 0) + self.items
+        timer._add(self._parent, self.name, dt, self.items)
+
+
+def record(name: str, seconds: float = 0.0,
+           items: Optional[int] = None) -> None:
+    """Records one call of span `name` that was not timed here: seconds
+    that forked workers measured and returned (summed over workers that
+    may have run side by side, so not wall time), or, with none, a count
+    whose items are what it counts. It goes where a span entered at this
+    point would go, under the open stage and the span open around the
+    call, and nowhere where a span would record nothing; it has no
+    interval on this process's clock, so no record_function either."""
+    timer = _ACTIVE
+    if timer is not None and timer._thread == get_ident():
+        timer._add(timer._open[-1] if timer._open else "", name, seconds,
+                   items)
 
 
 class StageTimer:
@@ -127,6 +136,18 @@ class StageTimer:
         self._traced = False
         self._open: List[str] = []
         self._outer: List[Optional[StageTimer]] = []
+
+    def _add(self, parent: str, name: str, seconds: float,
+             items: Optional[int]) -> None:
+        key = (self._stage or "run", parent, name)
+        row = self.spans.get(key)
+        if row is None:
+            self.spans[key] = [1, seconds, items]
+        else:
+            row[0] += 1
+            row[1] += seconds
+            if items is not None:
+                row[2] = (row[2] or 0) + items
 
     def _activate(self) -> None:
         global _ACTIVE

@@ -73,7 +73,7 @@ from mandalorion_tpu_torch.io.psl import (
     PslRecord, format_psl, parse_psl_line, read_psl, sort_psl_file)
 from mandalorion_tpu_torch.io.sam import sam_to_psl
 from mandalorion_tpu_torch.parallel.mesh import pipeline_mesh
-from mandalorion_tpu_torch.pipeline.observe import StageTimer, span
+from mandalorion_tpu_torch.pipeline.observe import StageTimer, record, span
 from mandalorion_tpu_torch.poa.consensus import (
     determine_consensus_batch, graph_backend)
 from mandalorion_tpu_torch.runtime import fork_ok, resolve_device
@@ -313,9 +313,12 @@ def module_p(paths: Paths, cfg: PipelineConfig,
 
 def _locus_worker(locus_psl, chrom, lb, rb, cfg):
     """Picklable per-locus job for the worker pool; workers are seeded
-    from the pipeline seed (the reference is unseeded here, SURVEY §5.9)."""
+    from the pipeline seed (the reference is unseeded here, SURVEY §5.9).
+    Returns (results, the locus' end-calling stats)."""
+    stats: dict = {}
     return process_locus(locus_psl, chrom, lb, rb, cfg,
-                         np.random.default_rng(cfg.seed))
+                         np.random.default_rng(cfg.seed),
+                         stats=stats), stats
 
 
 def _locus_prepare_worker(locus_psl, chrom, lb, rb, cfg):
@@ -323,19 +326,23 @@ def _locus_prepare_worker(locus_psl, chrom, lb, rb, cfg):
     returning ConsensusJobs; the graph DPs then batch across ALL loci in
     the parent (one shared device dispatch set per round instead of one
     small set per locus)."""
+    stats: dict = {}
     return process_locus(locus_psl, chrom, lb, rb, cfg,
                          np.random.default_rng(cfg.seed),
-                         prepare_jobs=True)
+                         prepare_jobs=True, stats=stats), stats
 
 
 def process_locus(locus_psl: str, chrom: str, left_bounds: Dict[str, List[int]],
                   right_bounds: Dict[str, List[int]], cfg: PipelineConfig,
                   rng: Optional[np.random.Generator] = None,
-                  prepare_jobs: bool = False):
+                  prepare_jobs: bool = False,
+                  stats: Optional[dict] = None):
     """One locus: peaks → junction identities → isoforms → consensus.
     Returns [(consensus_sequence, [read names]), ...] in isoform order;
     with prepare_jobs=True, the pending ConsensusJobs instead (same rng
-    consumption, device phase deferred to the caller)."""
+    consumption, device phase deferred to the caller). `stats`, when
+    given, gains the end calling's seconds ("ends_s"), the isoform groups
+    it formed ("groups") and the identities it split ("end_splits")."""
     records = [parse_psl_line(l) for l in open(locus_psl) if l.strip()]
     reads = LocusReads.from_records(records)
     hist = collect_reads(reads, cfg.accuracy_gate)
@@ -356,9 +363,13 @@ def process_locus(locus_psl: str, chrom: str, left_bounds: Dict[str, List[int]],
     splice = build_splice_dict([rows_a_l, rows_a_r, rows_n_l, rows_n_r])
     spliced, mono = sort_reads_into_splice_junctions(
         splice, reads, chrom, cfg.junction_gap)
+    t0 = time.perf_counter()
     iso = define_start_end_sites(
         spliced, mono, reads, cfg.upstream_buffer, cfg.downstream_buffer,
-        cfg.minimum_feature_count, rng, cfg.ends_subsample)
+        cfg.minimum_feature_count, rng, cfg.ends_subsample, stats)
+    if stats is not None:
+        stats["ends_s"] = time.perf_counter() - t0
+        stats["groups"] = len(iso)
     read_sets = [[(reads.names[i], reads.sequences[i])
                   for i in iso[key].read_indices] for key in iso]
     if prepare_jobs:
@@ -394,6 +405,14 @@ def module_d(paths: Paths, cfg: PipelineConfig, annotation_path: str,
                 all_results = pool.starmap(worker, jobs)
         else:
             all_results = [worker(*j) for j in jobs]
+        # the end calling, timed in the workers: worker seconds summed
+        # over loci, and the isoform groups formed
+        record("define.ends", sum(st["ends_s"] for _r, st in all_results),
+               sum(st["groups"] for _r, st in all_results))
+        # a count: the splice groups that end calling split
+        record("define.end_splits",
+               items=sum(st.get("end_splits", 0) for _r, st in all_results))
+        all_results = [r for r, _st in all_results]
     if graph_engine:
         # compute phase, in this process: with the device backend the
         # pending graph DPs of ALL loci resolve in shared batched
@@ -468,12 +487,28 @@ def _locus_jobs(paths: Paths, cfg: PipelineConfig,
 
 def _filter_chrom_worker(chrom, clean_psl, chr_seq, polya_bed, cfg):
     """Picklable per-chromosome filter job: returns (kept names, psl lines,
-    filter-reason log text)."""
+    filter-reason log text, the rules' stats)."""
     parts: List[str] = []
+    stats: dict = {}
     kept, table = process_chromosome(chrom, clean_psl, chr_seq, polya_bed,
-                                     cfg, lambda m: parts.append(m + "\n"))
+                                     cfg, lambda m: parts.append(m + "\n"),
+                                     stats)
     lines = {name: "\t".join(table.lines[name]) for name in kept}
-    return kept, lines, "".join(parts)
+    return kept, lines, "".join(parts), stats
+
+
+def _record_filter_rules(chrom_results: list) -> None:
+    """Module F's rules as spans, timed in the chromosome jobs (worker
+    seconds, summed over chromosomes): `filter.ratio` and
+    `filter.contain`, each with the isoforms it kept; and a count of each
+    rule's drops, `filter.drop.<rule>`."""
+    stats = [r[3] for r in chrom_results]
+    for rule in ("ratio", "contain"):
+        record(f"filter.{rule}", sum(st[f"{rule}_s"] for st in stats),
+               sum(st[f"{rule}_kept"] for st in stats))
+    for rule in ("absolute", "ratio", "polya", "internal", "identical"):
+        record(f"filter.drop.{rule}",
+               items=sum(st["drops"][rule] for st in stats))
 
 
 def module_f(paths: Paths, cfg: PipelineConfig, genome_path: str,
@@ -525,6 +560,7 @@ def module_f(paths: Paths, cfg: PipelineConfig, genome_path: str,
                 chrom_results = pool.starmap(_filter_chrom_worker, jobs)
         else:
             chrom_results = [_filter_chrom_worker(*j) for j in jobs]
+        _record_filter_rules(chrom_results)
 
     with span("filter.write"):
         _filter_outputs(paths, annotation_path, isoforms, chrom_results)
@@ -538,7 +574,7 @@ def _filter_outputs(paths: Paths, annotation_path: str,
     with open(paths.t("filter_reasons.txt"), "w") as reasons, \
             open(paths.t("Isoforms.filtered.fasta"), "w") as ffa, \
             open(paths.t("Isoforms.filtered.clean.psl"), "w") as fpsl:
-        for kept, lines, reason_log in chrom_results:
+        for kept, lines, reason_log, _stats in chrom_results:
             reasons.write(reason_log)
             for name in kept:
                 ffa.write(f">{name}\n{isoforms[name]}\n")

@@ -78,7 +78,7 @@ from mandalorion_tpu_torch import _build
 from mandalorion_tpu_torch.native import load_native
 from mandalorion_tpu_torch.parallel.mesh import (
     fetch_global, pad_rows, pipeline_mesh)
-from mandalorion_tpu_torch.pipeline.observe import span
+from mandalorion_tpu_torch.pipeline.observe import record, span
 from mandalorion_tpu_torch.poa.graph import NEG, PoaGraph, PoaParams
 from mandalorion_tpu_torch.runtime import (
     LaunchCounter, require_native, resolve_device)
@@ -1091,6 +1091,16 @@ class NativePoaGraph:
         return out[:n].copy()
 
 
+def _count_round(k: int, problems: int) -> None:
+    """Counts round k's problems: `poa.round` every round, and
+    `poa.round.first` the first round of a call, the widest (a graph
+    stays live while it has reads left), which tells whether a round
+    outnumbers the card's SMs."""
+    record("poa.round", items=problems)
+    if k == 1:
+        record("poa.round.first", items=problems)
+
+
 def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                         params: Optional[PoaParams] = None, device="cuda",
                         walk: str = "steps",
@@ -1135,6 +1145,7 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
         live = [i for i, s in enumerate(seq_sets) if k < len(s)]
         if not live:
             break
+        _count_round(k, len(live))
         if obs is not None:
             obs.rounds += 1
         queries = [seq_sets[i][k] for i in live]
@@ -1201,6 +1212,7 @@ def _poa_rounds_python(seq_sets, params, device, bands, obs
         live = [i for i, s in enumerate(seq_sets) if k < len(s)]
         if not live:
             break
+        _count_round(k, len(live))
         if obs is not None:
             obs.rounds += 1
         paths = _align_graphs([graphs[i] for i in live],

@@ -312,6 +312,14 @@ ROUTE_SPANS = {
                  "filter.write"},
     "run": {"checkpoint_wait"},
 }
+# the rows recorded inside a span of ROUTE_SPANS: (stage, parent) -> spans
+NESTED_SPANS = {
+    ("D_define", "define.prepare"): {"define.ends", "define.end_splits"},
+    ("F_filter", "filter.chroms"): {
+        "filter.ratio", "filter.contain", "filter.drop.absolute",
+        "filter.drop.ratio", "filter.drop.polya", "filter.drop.internal",
+        "filter.drop.identical"},
+}
 
 
 def _span_rows(out_dir):
@@ -339,11 +347,12 @@ def test_spans_tsv_names_each_span_of_the_route(runs, run):
     rows = _span_rows(runs / run)
     got: dict = {}
     for stage, parent, name, calls, _s, items in rows:
-        got.setdefault(stage, set()).add(name)
-        assert parent == "" and calls >= 1, (stage, name)
-    want = {k: set(v) for k, v in ROUTE_SPANS.items()}
+        got.setdefault((stage, parent), set()).add(name)
+        assert calls >= 1, (stage, name)
+    want = {(k, ""): set(v) for k, v in ROUTE_SPANS.items()}
+    want.update(NESTED_SPANS)
     if run == "port":
-        want["run"].add("profiler")
+        want[("run", "")].add("profiler")
     assert got == want
     items = {(st, n): i for st, _p, n, _c, _s, i in rows}
     calls = {(st, n): c for st, _p, n, c, _s, _i in rows}
@@ -556,6 +565,121 @@ def test_run_observer_reads_the_poa_spans(tmp_path, monkeypatch, graphs):
         pytest.approx(obs.fill_s, abs=1e-6)
     assert rows[("D_define", "define.resolve", "poa.apply")] == \
         pytest.approx(obs.apply_s, abs=1e-6)
+
+
+@pytest.mark.parametrize("graphs", ["native", "python"])
+def test_poa_round_counts_each_rounds_problems(tmp_path, monkeypatch,
+                                               graphs):
+    """Count poa.round has a call a round and, over them, the rounds'
+    problems (the dispatched ones); poa.round.first the first round's,
+    every set of two reads or more; neither has seconds."""
+    from mandalorion_tpu_torch.poa import kernels as K
+    from mandalorion_tpu_torch.poa.graph import PoaParams
+    if graphs == "native" and K.load_native() is None:
+        pytest.skip("native library unavailable")
+    if graphs == "python":
+        monkeypatch.setattr(K, "load_native", lambda: None)
+    obs = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", obs)
+    sets = _poa_sets(7, n_sets=4, n_reads=4)
+    sets[1], sets[2] = sets[1][:2], sets[2][:1]
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer.stage("D_define"):
+        with span("define.resolve", 4):
+            K.poa_consensus_batch(sets, PoaParams(band=16), device="cpu")
+    rows = {(st, par, n): (c, s, i) for st, par, n, c, s, i in
+            _span_rows(tmp_path)}
+    assert rows[("D_define", "define.resolve", "poa.round")] == \
+        (obs.rounds, 0.0, sum(c[0] for c in obs.chunks)) == (3, 0.0, 7)
+    assert rows[("D_define", "define.resolve", "poa.round.first")] == \
+        (1, 0.0, 3)
+
+
+@pytest.fixture(scope="module")
+def event_runs(tmp_path_factory):
+    """The port's CLI (default route, -t 2) on a small sample of the
+    benchmark's isoform_events generator (every event kind, a tandem pair
+    among them), traced and untraced, and on the same genes with exon
+    skipping alone (planted_isoforms)."""
+    import event_samples
+    from mandalorion_tpu_torch.pipeline.cli import main
+    if load_native() is None:
+        pytest.skip("native library unavailable")
+    tmp = tmp_path_factory.mktemp("events")
+    events = event_samples.make(str(tmp / "events"))
+    skips = event_samples.make(str(tmp / "skips"), event_samples.SKIPS)
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for tag, s, trace in (("traced", events, True),
+                              ("plain", events, False),
+                              ("skips", skips, False)):
+            if trace:
+                mp.setenv("MANDO_TPU_PROFILE", str(tmp / "trace"))
+            else:
+                mp.delenv("MANDO_TPU_PROFILE", raising=False)
+            runs[tag] = str(tmp / tag)
+            assert main(["-p", runs[tag], *s.args, "-t", "2",
+                         "--device", "cpu"]) == 0
+    return runs
+
+
+def _items(out_dir):
+    """{(stage, span): (calls, items)} of a run's spans.tsv."""
+    return {(st, n): (c, i) for st, _p, n, c, _s, i in _span_rows(out_dir)}
+
+
+def test_filter_drops_and_kept_add_up_to_the_consensi(event_runs):
+    """Module F's drop counters and the isoforms it kept account for every
+    consensus module D wrote; filter.ratio keeps what filter.contain
+    takes, and filter.contain keeps what Isoforms.filtered.fasta holds."""
+    for tag in ("plain", "traced", "skips"):
+        got = _items(event_runs[tag])
+        kept = got[("F_filter", "filter.contain")][1]
+        drops = {n.rsplit(".", 1)[1]: got[("F_filter", n)][1] for _st, n in
+                 got if n.startswith("filter.drop.")}
+        assert set(drops) == {"absolute", "ratio", "polya", "internal",
+                              "identical"}
+        assert kept + sum(drops.values()) == \
+            got[("D_define", "define.write")][1]
+        assert got[("F_filter", "filter.ratio")][1] == kept + \
+            drops["polya"] + drops["internal"] + drops["identical"]
+        with open(os.path.join(event_runs[tag],
+                               "Isoforms.filtered.fasta")) as fh:
+            assert fh.read().count(">") == kept > 0
+
+
+def test_end_calling_spans_and_splits(event_runs):
+    """define.ends has the groups that end calling formed (module D's
+    consensi, every group here being of enough reads); define.end_splits
+    counts the tandem-UTR sample's split splice groups, and none where
+    exons are only skipped."""
+    for tag in ("plain", "skips"):
+        got = _items(event_runs[tag])
+        assert got[("D_define", "define.ends")][1] == \
+            got[("D_define", "define.write")][1]
+    assert _items(event_runs["plain"])[("D_define",
+                                        "define.end_splits")][1] >= 1
+    assert _items(event_runs["skips"])[("D_define",
+                                        "define.end_splits")] == (1, 0)
+
+
+def test_event_outputs_do_not_change_with_tracing(event_runs):
+    """Traced and untraced, the same seven files and the same span rows
+    with the same counts (the traced run adds the profiler's own)."""
+    assert artifacts_of(event_runs["traced"]) == \
+        artifacts_of(event_runs["plain"])
+    traced = {k: v[1] for k, v in _items(event_runs["traced"]).items()
+              if k != ("run", "profiler")}
+    assert traced == {k: v[1] for k, v in
+                      _items(event_runs["plain"]).items()}
+
+
+def artifacts_of(out_dir):
+    blobs = _artifacts(out_dir)
+    with open(os.path.join(out_dir, "Isoforms.filtered.clean.genes"),
+              "rb") as fh:
+        blobs["genes"] = fh.read()
+    return blobs
 
 
 def test_profiler_seconds_are_recorded_under_run(tmp_path, monkeypatch,
