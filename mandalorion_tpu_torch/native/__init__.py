@@ -201,8 +201,6 @@ def load_native() -> Optional[ctypes.CDLL]:
         lib.poa_graph_free_c.argtypes = [ctypes.c_void_p]
         lib.poa_graph_nodes_c.restype = ctypes.c_int64
         lib.poa_graph_nodes_c.argtypes = [ctypes.c_void_p]
-        lib.poa_graph_maxp_c.restype = ctypes.c_int64
-        lib.poa_graph_maxp_c.argtypes = [ctypes.c_void_p]
         lib.poa_graph_arrays_c.restype = ctypes.c_int64
         lib.poa_graph_arrays_c.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -218,6 +216,23 @@ def load_native() -> Optional[ctypes.CDLL]:
         lib.poa_graph_apply_runs_c.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64]
+        lib.poa_stage_pool_new_c.restype = ctypes.c_void_p
+        lib.poa_stage_pool_new_c.argtypes = [ctypes.c_int32]
+        lib.poa_stage_pool_free_c.restype = None
+        lib.poa_stage_pool_free_c.argtypes = [ctypes.c_void_p]
+        lib.poa_graphs_stage_c.restype = ctypes.c_int32
+        lib.poa_graphs_stage_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p] * 8
+        lib.poa_graphs_apply_c.restype = ctypes.c_int32
+        lib.poa_graphs_apply_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
+        lib.poa_graphs_sizes_c.restype = None
+        lib.poa_graphs_sizes_c.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
     except subprocess.CalledProcessError as exc:
         raise RuntimeError(
             f"native library build failed ({exc}):\n"

@@ -17,6 +17,11 @@
 #include <cstring>
 #include <vector>
 #include <algorithm>
+#include <atomic>
+#include <condition_variable>
+#include <functional>
+#include <mutex>
+#include <thread>
 
 namespace {
 
@@ -36,6 +41,7 @@ struct Graph {
     std::vector<std::vector<int32_t>> preds, succs;
     std::vector<std::vector<int64_t>> succ_w;  // parallel to succs
     std::vector<int32_t> starts;
+    size_t maxp = 1;  // the most predecessors of any node, at least 1
 
     explicit Graph(const uint8_t* seq, int64_t n) {
         base.reserve(n * 2);
@@ -55,6 +61,7 @@ struct Graph {
         su.push_back(v);
         succ_w[u].push_back(1);
         preds[v].push_back(u);
+        if (preds[v].size() > maxp) maxp = preds[v].size();
     }
 
     int32_t add_node(int32_t b) {
@@ -66,24 +73,29 @@ struct Graph {
     }
 
     // Kahn's BFS with a FIFO queue seeded in node-index order — exactly
-    // PoaGraph.topo_order (collections.deque popleft)
+    // PoaGraph.topo_order (collections.deque popleft). The queue is
+    // `order` itself: nodes leave it in the order they entered.
     void topo_order(std::vector<int32_t>& order) const {
+        topo_visit(order, [](int32_t, int64_t) {});
+    }
+
+    // topo_order, calling visit(node, rank) as each node leaves the
+    // queue: by then all its predecessors have left it.
+    template <class Visit>
+    void topo_visit(std::vector<int32_t>& order, Visit visit) const {
         int64_t n = base.size();
         std::vector<int32_t> indeg(n);
         order.clear();
         order.reserve(n);
-        std::vector<int32_t> queue;
-        queue.reserve(n);
         for (int64_t v = 0; v < n; v++) {
             indeg[v] = (int32_t)preds[v].size();
-            if (!indeg[v]) queue.push_back((int32_t)v);
+            if (!indeg[v]) order.push_back((int32_t)v);
         }
-        size_t head = 0;
-        while (head < queue.size()) {
-            int32_t u = queue[head++];
-            order.push_back(u);
+        for (size_t head = 0; head < order.size(); head++) {
+            int32_t u = order[head];
+            visit(u, (int64_t)head);
             for (int32_t v : succs[u])
-                if (--indeg[v] == 0) queue.push_back(v);
+                if (--indeg[v] == 0) order.push_back(v);
         }
     }
 };
@@ -544,6 +556,100 @@ static int64_t consensus(const Graph& g, uint8_t* out) {
     return (int64_t)outv.size();
 }
 
+// ------------------------------------------------------------ threads
+
+// The threads a call over n independent graphs runs on when given
+// n_threads: one a graph at most, and 1 (the serial loop) for a single
+// graph or thread.
+static int32_t stage_threads(int64_t n, int32_t n_threads) {
+    if (n_threads <= 1 || n < 2) return 1;
+    return n < n_threads ? (int32_t)n : n_threads;
+}
+
+// Worker threads for a run of chunk calls, up to max_threads a call with
+// the caller's: started when a call first needs them, parked between
+// calls, joined when the pool is freed. Starting a thread costs up to a
+// millisecond on some hosts, against a few hundred microseconds of work a
+// graph, so a chunk call does not start its own. A pool serves one
+// caller at a time and lives inside one round loop: none of its threads
+// is alive when the pipeline forks.
+struct StagePool {
+    int32_t max_threads;
+    std::vector<std::thread> workers;
+    std::mutex m;
+    std::condition_variable wake, done;
+    uint64_t generation = 0;
+    int32_t want = 0, pending = 0;
+    bool stop = false;
+    const std::function<void()>* task = nullptr;
+
+    explicit StagePool(int32_t threads) : max_threads(threads) {}
+
+    ~StagePool() {
+        {
+            std::lock_guard<std::mutex> lk(m);
+            stop = true;
+        }
+        wake.notify_all();
+        for (auto& th : workers) th.join();
+    }
+
+    // worker w takes part in the calls that want more than w workers
+    void loop(int32_t w, uint64_t seen) {
+        std::unique_lock<std::mutex> lk(m);
+        for (;;) {
+            wake.wait(lk, [&] { return stop || generation != seen; });
+            if (stop) return;
+            seen = generation;
+            if (w >= want) continue;
+            lk.unlock();
+            (*task)();
+            lk.lock();
+            if (--pending == 0) done.notify_one();
+        }
+    }
+
+    // fn(i) for every i < n, each i claimed by the next free thread, on
+    // stage_threads(n, max_threads) threads; returns that count
+    template <class Fn>
+    int32_t run(int64_t n, Fn fn) {
+        const int32_t nthr = stage_threads(n, max_threads);
+        std::atomic<int64_t> next{0};
+        const std::function<void()> claim = [&]() {
+            for (int64_t i; (i = next.fetch_add(1)) < n;) fn(i);
+        };
+        if (nthr == 1) {
+            claim();
+            return 1;
+        }
+        {
+            std::lock_guard<std::mutex> lk(m);
+            while ((int32_t)workers.size() < nthr - 1) {
+                const int32_t w = (int32_t)workers.size();
+                const uint64_t seen = generation;
+                workers.emplace_back([this, w, seen] { loop(w, seen); });
+            }
+            task = &claim;
+            want = pending = nthr - 1;
+            generation++;
+        }
+        wake.notify_all();
+        claim();
+        std::unique_lock<std::mutex> lk(m);
+        done.wait(lk, [&] { return pending == 0; });
+        return nthr;
+    }
+};
+
+// fn(i) for every i < n: on `pool`'s threads, or the serial loop without
+// one. Returns the thread count.
+template <class Fn>
+static int32_t for_each_problem(int64_t n, void* pool, Fn fn) {
+    if (pool) return ((StagePool*)pool)->run(n, fn);
+    for (int64_t i = 0; i < n; i++) fn(i);
+    return 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,52 +710,42 @@ int64_t poa_graph_nodes_c(void* h) {
     return (int64_t)((GraphHandle*)h)->g.base.size();
 }
 
-int64_t poa_graph_maxp_c(void* h) {
-    const Graph& g = ((GraphHandle*)h)->g;
-    size_t m = 1;
-    for (const auto& ps : g.preds) m = ps.size() > m ? ps.size() : m;
-    return (int64_t)m;
-}
-
 // Rank-space arrays for the device kernel (kernels.graph_arrays' C twin):
 // out_base (n_cap) int32, out_preds (n_cap, p_cap) int32 holding pred
-// rank + 1 (0 = virtual source; caller pre-fills -1 padding), out_ends
-// (n_cap) uint8. Caches the topo order for poa_graph_apply_c. Returns
-// the node count, or -1 when n_cap/p_cap are too small.
+// rank + 1 (0 = virtual source) and -1 out to p_cap, out_ends (n_cap)
+// uint8, each written on rows 0..n-1 only. Caches the topo order for
+// poa_graph_apply_c. Returns the node count n, or -1 when n_cap/p_cap
+// are too small.
 int64_t poa_graph_arrays_c(void* h, int64_t n_cap, int64_t p_cap,
                            int32_t* out_base, int32_t* out_preds,
                            uint8_t* out_ends) {
     GraphHandle* gh = (GraphHandle*)h;
-    gh->g.topo_order(gh->order);
-    const auto& order = gh->order;
-    int64_t n = (int64_t)order.size();
-    if (n > n_cap) return -1;
-    std::vector<int32_t> rank(gh->g.base.size());
-    for (int64_t r = 0; r < n; r++) rank[order[r]] = (int32_t)r;
-    for (int64_t r = 0; r < n; r++) {
-        int32_t v = order[r];
-        out_base[r] = gh->g.base[v];
-        const auto& ps = gh->g.preds[v];
-        if ((int64_t)ps.size() > p_cap) return -1;
+    const Graph& g = gh->g;
+    const int64_t n = (int64_t)g.base.size();
+    if (n > n_cap || (int64_t)g.maxp > p_cap) return -1;
+    std::vector<int32_t> rank(n);
+    // a node's row is written as it leaves the topo queue, its
+    // predecessors' ranks already known
+    g.topo_visit(gh->order, [&](int32_t v, int64_t r) {
+        rank[v] = (int32_t)r;
+        out_base[r] = g.base[v];
+        const auto& ps = g.preds[v];
         int32_t* row = out_preds + r * p_cap;
-        if (ps.empty()) {
-            row[0] = 0;
-        } else {
-            for (size_t c = 0; c < ps.size(); c++)
-                row[c] = rank[ps[c]] + 1;
-        }
-        out_ends[r] = gh->g.succs[v].empty() ? 1 : 0;
-    }
+        int64_t c = 0;
+        if (ps.empty()) row[c++] = 0;
+        for (int32_t u : ps) row[c++] = rank[u] + 1;
+        for (; c < p_cap; c++) row[c] = -1;
+        out_ends[r] = g.succs[v].empty() ? 1 : 0;
+    });
     return n;
 }
 
-// Apply a device traceback to the graph: buf holds (qi, rank) int32
+// A device walk's steps back into the graph: buf holds (qi, rank) int32
 // pairs in REVERSE order (the kernel's emission order), first k entries;
 // ranks resolve through the topo order cached by the LAST
 // poa_graph_arrays_c call (the same order the kernel consumed).
-void poa_graph_apply_c(void* h, const uint8_t* q, const int32_t* buf,
-                       int64_t k) {
-    GraphHandle* gh = (GraphHandle*)h;
+static void apply_steps(GraphHandle* gh, const uint8_t* q,
+                        const int32_t* buf, int64_t k) {
     std::vector<int32_t> steps(2 * k);
     for (int64_t i = 0; i < k; i++) {
         steps[2 * i] = buf[2 * (k - 1 - i)];
@@ -659,20 +755,15 @@ void poa_graph_apply_c(void* h, const uint8_t* q, const int32_t* buf,
     apply_path(gh->g, q, steps.data(), k);
 }
 
-int64_t poa_graph_consensus_handle_c(void* h, uint8_t* out) {
-    return consensus(((GraphHandle*)h)->g, out);
-}
-
-// Apply a run-compressed device traceback (poa/pallas_kernel.py
-// reverse-sweep records, EMISSION order end->start):
+// A run-compressed device traceback (poa/pallas_kernel.py reverse-sweep
+// records, EMISSION order end->start) back into the graph:
 //   rec0 = qi_hi | type << 16, rec1 = qi_lo | (rank + 2) << 16
 //   type 0 diag (one (qi_hi, rank) step), 1 del ((-1, rank)),
 //   2 insertion run ((qi, -1) for qi_lo..qi_hi ascending in forward
 //   order). Expands to exactly the XLA walk's step sequence, then
-//   threads the query like poa_graph_apply_c.
-void poa_graph_apply_runs_c(void* h, const uint8_t* q,
-                            const int32_t* recs, int64_t k) {
-    GraphHandle* gh = (GraphHandle*)h;
+//   threads the query like apply_steps.
+static void apply_runs(GraphHandle* gh, const uint8_t* q,
+                       const int32_t* recs, int64_t k) {
     std::vector<int32_t> steps;
     steps.reserve(4 * k);
     for (int64_t i = k - 1; i >= 0; i--) {
@@ -692,6 +783,104 @@ void poa_graph_apply_runs_c(void* h, const uint8_t* q,
         }
     }
     apply_path(gh->g, q, steps.data(), (int64_t)steps.size() / 2);
+}
+
+void poa_graph_apply_c(void* h, const uint8_t* q, const int32_t* buf,
+                       int64_t k) {
+    apply_steps((GraphHandle*)h, q, buf, k);
+}
+
+int64_t poa_graph_consensus_handle_c(void* h, uint8_t* out) {
+    return consensus(((GraphHandle*)h)->g, out);
+}
+
+void poa_graph_apply_runs_c(void* h, const uint8_t* q,
+                            const int32_t* recs, int64_t k) {
+    apply_runs((GraphHandle*)h, q, recs, k);
+}
+
+// ---------------------------------------------------------------------
+// A chunk of the device round loop at once: its problems' staging and
+// their paths applied, one native call each, the problems split over a
+// StagePool's threads. Graphs are independent handles, so a thread
+// claims the next problem and touches that graph alone: each result is
+// the per-graph call's, whatever the thread count. A chunk's handles are
+// distinct.
+
+// A StagePool of up to n_threads threads a call, the caller's among them
+// (none started yet).
+void* poa_stage_pool_new_c(int32_t n_threads) {
+    return new StagePool(n_threads);
+}
+
+// Joins the pool's threads and frees it.
+void poa_stage_pool_free_c(void* pool) { delete (StagePool*)pool; }
+
+// Stages a chunk of n problems for the device forward. Problem i is graph
+// handles[i] against the query codes reads[q_start[i] .. + q_len[i]) at
+// band half-width band_in[i]; its rows of the chunk's arrays (caps n_cap,
+// p_cap, l_cap) are written as poa_graph_arrays_c writes them: base,
+// preds and ends on rows 0..nn-1, nn[i] the node count, qq[i, 0..ql-1]
+// the query as int32, ql[i], band[i]. Rows past nn and query columns past
+// ql are not written. Caches each graph's topo order for
+// poa_graphs_apply_c. On `pool`'s threads (NULL: the serial loop).
+// Returns the thread count, or -1 when a graph outgrows n_cap or p_cap,
+// or a query l_cap.
+int32_t poa_graphs_stage_c(void* const* handles, int64_t n,
+                           const uint8_t* reads, const int64_t* q_start,
+                           const int64_t* q_len, const int32_t* band_in,
+                           int64_t n_cap, int64_t p_cap, int64_t l_cap,
+                           int32_t* base, int32_t* preds, uint8_t* ends,
+                           int32_t* nn, int32_t* qq, int32_t* ql,
+                           int32_t* band, void* pool) {
+    std::atomic<bool> bad{false};
+    int32_t nthr = for_each_problem(n, pool, [&](int64_t i) {
+        int64_t nodes = poa_graph_arrays_c(
+            handles[i], n_cap, p_cap, base + i * n_cap,
+            preds + i * n_cap * p_cap, ends + i * n_cap);
+        const int64_t len = q_len[i];
+        if (nodes < 0 || len > l_cap) {
+            bad.store(true);
+            return;
+        }
+        nn[i] = (int32_t)nodes;
+        const uint8_t* q = reads + q_start[i];
+        int32_t* row = qq + i * l_cap;
+        for (int64_t j = 0; j < len; j++) row[j] = q[j];
+        ql[i] = (int32_t)len;
+        band[i] = band_in[i];
+    });
+    return bad.load() ? -1 : nthr;
+}
+
+// Threads each problem's query (as poa_graphs_stage_c takes it) along its
+// walk output: problem i's counts[i] entries start at walk + i * stride
+// (int32 words), reverse-order (qi, rank) steps as poa_graph_apply_c
+// takes them, or with runs != 0 records as poa_graph_apply_runs_c does.
+// Ranks resolve through the topo order of the last staging call. On
+// `pool`'s threads (NULL: the serial loop); returns the thread count.
+int32_t poa_graphs_apply_c(void* const* handles, int64_t n,
+                           const uint8_t* reads, const int64_t* q_start,
+                           const int32_t* walk, int64_t stride,
+                           const int32_t* counts, int32_t runs,
+                           void* pool) {
+    return for_each_problem(n, pool, [&](int64_t i) {
+        GraphHandle* gh = (GraphHandle*)handles[i];
+        const int32_t* w = walk + i * stride;
+        if (runs) apply_runs(gh, reads + q_start[i], w, counts[i]);
+        else apply_steps(gh, reads + q_start[i], w, counts[i]);
+    });
+}
+
+// Node counts and the most predecessors of any node (at least 1) of n
+// graphs: a round's caps.
+void poa_graphs_sizes_c(void* const* handles, int64_t n, int64_t* nodes,
+                        int64_t* maxp) {
+    for (int64_t i = 0; i < n; i++) {
+        const Graph& g = ((GraphHandle*)handles[i])->g;
+        nodes[i] = (int64_t)g.base.size();
+        maxp[i] = (int64_t)g.maxp;
+    }
 }
 
 // Single alignment against an externally-described graph (rank space:

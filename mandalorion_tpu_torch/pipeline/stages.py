@@ -417,12 +417,13 @@ def module_d(paths: Paths, cfg: PipelineConfig, annotation_path: str,
         # compute phase, in this process: with the device backend the
         # pending graph DPs of ALL loci resolve in shared batched
         # dispatches (bit-identical to per-locus resolves; grouping only
-        # changes padding)
+        # changes padding); the device rounds' host staging on -t threads
         from mandalorion_tpu_torch.poa.consensus import resolve_consensus_jobs
         flat = [job for locus_jobs in all_results for job in locus_jobs]
         with span("define.resolve", len(flat)):
             resolved = iter(resolve_consensus_jobs(
-                flat, backend=graph_backend(cfg.poa.backend), device=device))
+                flat, backend=graph_backend(cfg.poa.backend), device=device,
+                threads=max(1, min(cfg.threads, os.cpu_count() or 1))))
         all_results = [[next(resolved) for _ in locus_jobs]
                        for locus_jobs in all_results]
 

@@ -185,7 +185,8 @@ def graph_backend(backend: Optional[str] = None) -> str:
 
 
 def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
-                           backend: Optional[str] = None, device="cuda"
+                           backend: Optional[str] = None, device="cuda",
+                           threads: int = 1
                            ) -> List[Tuple[str, List[str]]]:
     """Compute phase: run every pending graph-POA job through `backend`
     (`graph_backend` resolves None and 'auto'): 'native', the C++ banded
@@ -194,7 +195,8 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     from. The band half-width is a per-problem input there, so jobs are
     grouped by their params without the band: jobs whose bands differ
     (the band follows the median read length) share every round's
-    dispatch. Both produce the same consensi."""
+    dispatch; each chunk's host staging runs on `threads` threads
+    (`poa_consensus_batch`). Both produce the same consensi."""
     import dataclasses
     import os
     backend = graph_backend(backend)
@@ -229,7 +231,7 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     for ids in by_params.values():
         consensi = poa_consensus_batch(
             [jobs[i].oriented for i in ids], jobs[ids[0]].params, device,
-            walk, bands=[jobs[i].params.band for i in ids])
+            walk, bands=[jobs[i].params.band for i in ids], threads=threads)
         for i, cons in zip(ids, consensi):
             jobs[i].result = (_decode(cons) if len(cons)
                               else jobs[i].fallback)

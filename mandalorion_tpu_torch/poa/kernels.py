@@ -112,15 +112,17 @@ class RunObserver:
     """What a caller asks `poa_consensus_batch` to record while this
     object is installed as `OBSERVER`: rounds, chunk shapes and host
     seconds in the C staging calls, the `poa.fill` and `poa.apply` spans'
-    (`apply_s` covers apply_steps and apply_runs alike; under
+    (`apply_s` covers the step and record walks alike; under
     MANDO_TPU_NO_NATIVE `fill_s` is graph_arrays' and `apply_s`
     apply_path's), always; with `time_kernels` a CUDA event pair
     around every kernel launch (read after a synchronise by `kernel_ms`,
-    the walk under the key of the kernel that ran); the numpy arrays of
-    the chunks of `keep_rounds` as `kept` = [(round, W, l_cap, arrays)];
-    with `keep_largest` the chunk
+    the walk under the key of the kernel that ran); copies of the numpy
+    arrays of the chunks of `keep_rounds` as `kept` = [(round, W, l_cap,
+    arrays)]; with `keep_largest` the chunk
     of most DP cells as `largest` = (arrays, W, l_cap, params), so that a
-    check can replay real chunks."""
+    check can replay real chunks. The arrays `chunk` is handed may be
+    views of buffers that the next chunk reuses: what it keeps, it
+    copies."""
 
     def __init__(self, time_kernels: bool = False, keep_rounds=(),
                  keep_largest: bool = False):
@@ -142,11 +144,11 @@ class RunObserver:
         self.chunks.append((base.shape[0], base.shape[1], W, int(nn.max()),
                             k))
         if k in self.keep_rounds:
-            self.kept.append((k, W, l_cap, arrays))
+            self.kept.append((k, W, l_cap, tuple(map(np.array, arrays))))
         if self.keep_largest and (
                 self.largest is None
                 or base.size * W > self.largest[0][0].size * self.largest[1]):
-            self.largest = (arrays, W, l_cap, params)
+            self.largest = (tuple(map(np.array, arrays)), W, l_cap, params)
 
     def kernel_ms(self) -> dict:
         torch.cuda.synchronize()
@@ -232,6 +234,13 @@ def check_problem_ranges(nn: np.ndarray, ql: np.ndarray, n_cap: int,
                          f"outside 0..min({l_cap}, 65535)")
 
 
+def _check_problems(base, nn, qq, ql, band) -> None:
+    check_problem_ranges(np.asarray(nn), np.asarray(ql), base.shape[1],
+                         qq.shape[1])
+    if len(band) != len(nn) or (len(band) and np.min(band) < 0):
+        raise ValueError("one band half-width >= 0 a problem expected")
+
+
 def problems_from_numpy(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
                         ends: np.ndarray, qq: np.ndarray, ql: np.ndarray,
                         band: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
@@ -240,10 +249,7 @@ def problems_from_numpy(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
     band (B,) band half-widths) as the device functions' tensors: int32,
     contiguous, on `device` (ends as uint8), after
     `check_problem_ranges`."""
-    check_problem_ranges(np.asarray(nn), np.asarray(ql), base.shape[1],
-                         qq.shape[1])
-    if len(band) != len(nn) or (len(band) and np.min(band) < 0):
-        raise ValueError("one band half-width >= 0 a problem expected")
+    _check_problems(base, nn, qq, ql, band)
 
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
@@ -251,6 +257,111 @@ def problems_from_numpy(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
     return (put(base, np.int32), put(preds, np.int32), put(nn, np.int32),
             put(ends, np.uint8), put(qq, np.int32), put(ql, np.int32),
             put(band, np.int32))
+
+
+# a section of ChunkStaging's packed inputs starts every 64 int32 words
+# (256 bytes)
+_SECTION_WORDS = 64
+
+
+def _words(n: int) -> int:
+    return -(-n // _SECTION_WORDS) * _SECTION_WORDS
+
+
+class ChunkStaging:
+    """The host buffers that one `poa_consensus_batch` call stages its
+    chunks in, reused from chunk to chunk and freed with the call.
+
+    `chunk` hands out a chunk's input arrays (problems_from_numpy's
+    base, preds, nn, ends, qq, ql, band) as numpy views of one int32
+    buffer, a section each. On a CUDA device the buffer is pinned,
+    `upload` copies its live part into a device buffer, likewise reused,
+    by one asynchronous copy, and `fetch` brings the walk's two outputs
+    back into a second pinned buffer with the chunk's one
+    synchronisation. On the CPU the device functions read the host buffer
+    itself and `fetch` hands their outputs on.
+
+    A buffer grows only when a chunk needs more than it holds, to half as
+    much again at least; `grows` counts the times. Nothing is cleared
+    between chunks: the staging call writes each problem's rows 0..nn-1
+    and query columns 0..ql-1, and neither the kernels nor the plain
+    versions read past them, so what an earlier chunk left there is never
+    read."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.grows = 0
+        self.host_in: Optional[torch.Tensor] = None
+        self.host_out: Optional[torch.Tensor] = None
+        self.dev_in: Optional[torch.Tensor] = None
+        self._layout: list = []
+
+    def _reserve(self, buf: Optional[torch.Tensor], words: int,
+                 device=None) -> torch.Tensor:
+        if buf is not None and buf.numel() >= words:
+            return buf
+        self.grows += 1
+        if buf is not None:
+            words = max(words, buf.numel() * 3 // 2)
+        return torch.empty(words, dtype=torch.int32, device=device,
+                           pin_memory=self.pinned and device is None)
+
+    @staticmethod
+    def _sections(flat, layout, as_bytes):
+        out = []
+        for i, (at, words, shape) in enumerate(layout):
+            sec = flat[at:at + words]
+            if i == 3:  # ends, one byte a node
+                sec = as_bytes(sec)[:int(np.prod(shape))]
+            out.append(sec.reshape(shape))
+        return tuple(out)
+
+    def chunk(self, B: int, n_cap: int, p_cap: int, l_cap: int
+              ) -> Tuple[np.ndarray, ...]:
+        """Views of the host buffer as a chunk of B problems' arrays:
+        base (B, n_cap), preds (B, n_cap, p_cap), nn (B,), ends (B, n_cap)
+        uint8, qq (B, l_cap), ql (B,), band (B,), the rest int32; they
+        hold whatever was there before."""
+        shapes = ((B, n_cap), (B, n_cap, p_cap), (B,), (B, n_cap),
+                  (B, l_cap), (B,), (B,))
+        self._layout, at = [], 0
+        for i, shape in enumerate(shapes):
+            words = int(np.prod(shape))
+            if i == 3:
+                words = -(-words // 4)
+            self._layout.append((at, words, shape))
+            at += _words(words)
+        self.host_in = self._reserve(self.host_in, at)
+        return self._sections(self.host_in.numpy(), self._layout,
+                              lambda a: a.view(np.uint8))
+
+    def upload(self) -> Tuple[torch.Tensor, ...]:
+        """The last `chunk`'s arrays as the device functions' tensors."""
+        flat = self.host_in
+        if self.pinned:
+            at, words, _shape = self._layout[-1]
+            live = at + words
+            self.dev_in = self._reserve(self.dev_in, live, self.device)
+            flat = self.dev_in[:live]
+            flat.copy_(self.host_in[:live], non_blocking=True)
+        return self._sections(flat, self._layout,
+                              lambda t: t.view(torch.uint8))
+
+    def fetch(self, rows: torch.Tensor, counts: torch.Tensor
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """The walk's two outputs as host numpy arrays."""
+        if not self.pinned:
+            return rows.numpy(), counts.numpy()
+        n = rows.numel()
+        self.host_out = self._reserve(self.host_out,
+                                      _words(n) + counts.numel())
+        host_rows = self.host_out[:n].view(rows.shape)
+        host_counts = self.host_out[_words(n):_words(n) + counts.numel()]
+        host_rows.copy_(rows, non_blocking=True)
+        host_counts.copy_(counts, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host_rows.numpy(), host_counts.numpy()
 
 
 # ------------------------------------------------------------ forward
@@ -328,6 +439,11 @@ def poa_forward_plain(base: torch.Tensor, preds: torch.Tensor,
         return torch.where(ok, got, NEG)
 
     n_hi = int(nn.max()) if B else 0
+    # rows past a problem's node count hold whatever its caller's buffer
+    # held there: they are read as padding
+    preds = torch.where(
+        (torch.arange(n_cap, device=dev)[None, :] < nn64[:, None])[..., None],
+        preds, -1)
     # predecessor slots in use per rank over the batch; the -1 padding
     # behind them changes nothing (every window value would be NEG)
     slot = torch.arange(1, p_cap + 1, device=dev)
@@ -875,43 +991,54 @@ def dispatch_chunk(base: np.ndarray, preds: np.ndarray, nn: np.ndarray,
                    band: np.ndarray, W: int, l_cap: int, params: PoaParams,
                    device: torch.device,
                    observer: Optional[RunObserver] = None,
-                   walk: str = "steps") -> Tuple[np.ndarray, np.ndarray]:
+                   walk: str = "steps",
+                   staging: Optional[ChunkStaging] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
     """The device part of one chunk: packed rank-space numpy arrays in,
     host arrays out: (buf, ks) reverse-order steps with walk="steps",
     (recs, counts) run-compressed records with walk="sweep" (the caller
     picks per chunk with `chunk_walk`). Forward and walk run back to back
     on one stream; fetching the walk's two outputs is the chunk's one
-    synchronisation.
+    synchronisation. With `staging`, the ChunkStaging whose last `chunk`
+    the arrays are, the upload and the outputs go through its buffers.
 
     Under a pipeline mesh the chunk's problems shard in contiguous blocks
     over the mesh (padding problems all zero: nn = 0, ql = 0, band 0),
     each of this process's shards runs forward and walk on its own
     device, and the walks' outputs gather back in shard order; `device`
-    is not used then."""
+    and `staging` are not used then."""
     if walk not in WALKS:
         raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
     arrays = (base, preds, nn, ends, qq, ql, band)
     mesh = pipeline_mesh()
     if mesh is None:
-        rows, counts = _forward_and_walk(arrays, W, l_cap, params, device,
+        if staging is None:
+            tensors = problems_from_numpy(*arrays, device)
+        else:
+            _check_problems(base, nn, qq, ql, band)
+            tensors = staging.upload()
+        rows, counts = _forward_and_walk(tensors, W, l_cap, params, device,
                                          observer, walk)
-        return rows.cpu().numpy(), counts.cpu().numpy()
+        if staging is None:
+            return rows.cpu().numpy(), counts.cpu().numpy()
+        return staging.fetch(rows, counts)
     B = len(nn)
     _padded, slices = mesh.shard_slices(B)
     rows, counts = fetch_global(mesh, [
-        _forward_and_walk([pad_rows(a, lo, hi) for a in arrays], W, l_cap,
-                          params, dev, observer, walk)
+        _forward_and_walk(problems_from_numpy(
+            *[pad_rows(a, lo, hi) for a in arrays], dev), W, l_cap, params,
+            dev, observer, walk)
         for dev, lo, hi in slices])
     return rows[:B], counts[:B]
 
 
-def _forward_and_walk(arrays, W: int, l_cap: int, params: PoaParams,
+def _forward_and_walk(tensors, W: int, l_cap: int, params: PoaParams,
                       device: torch.device, observer: Optional[RunObserver],
                       walk: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward and walk of one chunk's problems on `device`, on the
-    current stream; the walk's two outputs stay there."""
-    t_base, t_preds, t_nn, t_ends, t_qq, t_ql, t_band = problems_from_numpy(
-        *arrays, device)
+    """Forward and walk of one chunk's problems (problems_from_numpy's
+    tensors) on `device`, on the current stream; the walk's two outputs
+    stay there."""
+    t_base, t_preds, t_nn, t_ends, t_qq, t_ql, t_band = tensors
     timed = observer is not None and observer.time_kernels \
         and device.type == "cuda"
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
@@ -937,8 +1064,8 @@ def _chunk_items(n_cap: int, W: int) -> int:
     return max(1, CHUNK_BYTES // (BYTES_PER_CELL * (n_cap + 1) * W))
 
 
-def _check_query_lengths(queries) -> int:
-    longest = max(len(q) for q in queries)
+def _check_query_lengths(lengths) -> int:
+    longest = int(max(lengths))
     if longest >= 1 << 16:
         # the packed traceback matrices hold insertion origins in 16-bit
         # halves; the host C++ engine has no such limit
@@ -971,7 +1098,7 @@ def _align_graphs(graphs, queries, params, device, bands, obs, k):
         return []
     orders = [g.topo_order() for g in graphs]
     n_cap = _rank_cap(max(len(o) for o in orders))
-    l_cap = _pow2_at_least(_check_query_lengths(queries))
+    l_cap = _pow2_at_least(_check_query_lengths(len(q) for q in queries))
     p_max = max(1, max((len(g.preds[v]) for g in graphs
                         for v in range(len(g.base))), default=1))
     p_cap = _pow2_at_least(p_max, floor=4)
@@ -1050,14 +1177,11 @@ class NativePoaGraph:
     def n_nodes(self) -> int:
         return int(self._lib.poa_graph_nodes_c(self._h))
 
-    def max_preds(self) -> int:
-        return int(self._lib.poa_graph_maxp_c(self._h))
-
     def fill_arrays(self, base_row: np.ndarray, preds_row: np.ndarray,
                     ends_row: np.ndarray) -> int:
         """Write this graph's rank-space arrays into the given batch-row
-        slices (preds pre-filled -1); caches the topo order for
-        apply_steps. Returns the node count."""
+        slices, rows 0..n-1 (preds with its -1 padding); caches the topo
+        order for apply_steps. Returns the node count n."""
         n = self._lib.poa_graph_arrays_c(
             self._h, base_row.shape[0], preds_row.shape[1],
             base_row.ctypes.data, preds_row.ctypes.data,
@@ -1091,6 +1215,109 @@ class NativePoaGraph:
         return out[:n].copy()
 
 
+def _c_array(a: np.ndarray, dtype) -> np.ndarray:
+    if a.dtype != dtype or not a.flags.c_contiguous:
+        raise ValueError(f"a C-contiguous {np.dtype(dtype)} array expected")
+    return a
+
+
+def graph_sizes(handles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Node counts and most predecessors of a node (at least 1) of the
+    NativePoaGraphs whose handles (`_h`, uintp) are given: one native
+    call."""
+    lib = require_native("NativePoaGraph")
+    h = np.ascontiguousarray(handles, np.uintp)
+    nodes, maxp = np.empty(len(h), np.int64), np.empty(len(h), np.int64)
+    lib.poa_graphs_sizes_c(h.ctypes.data, len(h), nodes.ctypes.data,
+                           maxp.ctypes.data)
+    return nodes, maxp
+
+
+class StagePool:
+    """Native worker threads that `stage_graphs` and `apply_graphs` calls
+    share: up to `threads` a call with the caller's (min(threads,
+    problems); 1, the serial loop, for a single problem or thread),
+    started when a call first needs them, parked between calls and joined
+    by `close` (a `with` block closes it). Starting a thread costs about a
+    millisecond on some hosts, so a call does not start its own. A round
+    loop holds one for its own length: none of its threads is alive when
+    the process forks."""
+
+    def __init__(self, threads: int = 1):
+        self._lib = require_native("StagePool")
+        self._h = self._lib.poa_stage_pool_new_c(
+            max(1, min(int(threads), (1 << 31) - 1)))
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.poa_stage_pool_free_c(self._h)
+            self._h = None
+
+    def __enter__(self) -> "StagePool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def stage_graphs(handles: np.ndarray, codes: np.ndarray,
+                 q_start: np.ndarray, q_len: np.ndarray, bands: np.ndarray,
+                 arrays, pool: Optional[StagePool] = None) -> int:
+    """A chunk's staging in one native call: problem i is the
+    NativePoaGraph of handle handles[i] (distinct) against the query
+    codes[q_start[i]:q_start[i] + q_len[i]] at band half-width bands[i].
+    Writes into `arrays` (base, preds, nn, ends, qq, ql, band, as
+    ChunkStaging.chunk gives them) what fill_arrays writes of each graph,
+    its rows 0..nn-1, with nn, qq[i, :ql], ql and band, and nothing else;
+    caches each graph's topo order for `apply_graphs`. Runs on `pool`'s
+    threads (None: the serial loop); returns how many it ran on."""
+    lib = require_native("NativePoaGraph")
+    base, preds, nn, ends, qq, ql, band = arrays
+    for a, dtype in ((base, np.int32), (preds, np.int32), (nn, np.int32),
+                     (ends, np.uint8), (qq, np.int32), (ql, np.int32),
+                     (band, np.int32)):
+        _c_array(a, dtype)
+    h = np.ascontiguousarray(handles, np.uintp)
+    if not len(h) == len(q_start) == len(q_len) == len(bands) == len(nn):
+        raise ValueError("one graph, query and band a problem expected")
+    used = lib.poa_graphs_stage_c(
+        h.ctypes.data, len(h), _c_array(codes, np.uint8).ctypes.data,
+        np.ascontiguousarray(q_start, np.int64).ctypes.data,
+        np.ascontiguousarray(q_len, np.int64).ctypes.data,
+        np.ascontiguousarray(bands, np.int32).ctypes.data,
+        base.shape[1], preds.shape[2], qq.shape[1], base.ctypes.data,
+        preds.ctypes.data, ends.ctypes.data, nn.ctypes.data,
+        qq.ctypes.data, ql.ctypes.data, band.ctypes.data,
+        pool._h if pool is not None else None)
+    if used < 0:
+        raise ValueError("poa_graphs_stage_c: caps too small")
+    return int(used)
+
+
+def apply_graphs(handles: np.ndarray, codes: np.ndarray,
+                 q_start: np.ndarray, rows: np.ndarray, counts: np.ndarray,
+                 walk: str = "steps", pool: Optional[StagePool] = None) -> int:
+    """A chunk's paths applied in one native call: each problem's query
+    (as `stage_graphs` took it) threaded along rows[i, :counts[i]], the
+    step walk's reverse-order steps (`apply_steps`) or with walk="sweep"
+    the record walk's records (`apply_runs`), ranks resolved through the
+    last staging's topo order. On `pool`'s threads (None: the serial
+    loop); returns how many it ran on."""
+    if walk not in WALKS:
+        raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
+    lib = require_native("NativePoaGraph")
+    h = np.ascontiguousarray(handles, np.uintp)
+    rows = np.ascontiguousarray(rows, np.int32)
+    if len(rows) != len(h) or len(counts) != len(h):
+        raise ValueError("one walk output a graph expected")
+    return int(lib.poa_graphs_apply_c(
+        h.ctypes.data, len(h), _c_array(codes, np.uint8).ctypes.data,
+        np.ascontiguousarray(q_start, np.int64).ctypes.data,
+        rows.ctypes.data, int(np.prod(rows.shape[1:])),
+        np.ascontiguousarray(counts, np.int32).ctypes.data,
+        1 if walk == "sweep" else 0, pool._h if pool is not None else None))
+
+
 def _count_round(k: int, problems: int) -> None:
     """Counts round k's problems: `poa.round` every round, and
     `poa.round.first` the first round of a call, the widest (a graph
@@ -1104,17 +1331,21 @@ def _count_round(k: int, problems: int) -> None:
 def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
                         params: Optional[PoaParams] = None, device="cuda",
                         walk: str = "steps",
-                        bands: Optional[Sequence[int]] = None
-                        ) -> List[np.ndarray]:
+                        bands: Optional[Sequence[int]] = None,
+                        threads: int = 1) -> List[np.ndarray]:
     """Graph-POA consensus of many isoforms at once: reads are threaded in
     lockstep rounds: round k aligns the k-th read of every still-growing
     graph in batched device dispatches on `device` (the per-locus isoform
     axis, mirroring the reference's one-abpoa-process-per-isoform at
     SDC.py:915-919). Graphs live in C++ between rounds (NativePoaGraph),
-    so the per-round staging never touches Python adjacency lists and the
-    walk's steps go straight to C. With walk="sweep" every chunk that
-    `chunk_walk` lets through leaves the device as run-compressed records
-    (`poa_sweep`, `apply_runs`); the consensi are the same either way.
+    so the per-round staging never touches Python adjacency lists: a
+    chunk's staging and its paths applied are one native call each
+    (`stage_graphs`, `apply_graphs`) on min(`threads`, problems) threads
+    of the call's StagePool, into host buffers the call reuses from chunk
+    to chunk (ChunkStaging: pinned on a CUDA device). With walk="sweep"
+    every chunk that `chunk_walk` lets through leaves the device as
+    run-compressed records (`poa_sweep`, `apply_runs`); the consensi are
+    the same either way, and for every `threads`.
 
     `bands` gives each sequence set its own band half-width (default:
     params.band for all). The band is a per-problem input of the forward,
@@ -1123,13 +1354,16 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     consensus is what a call with that band alone gives.
 
     A `RunObserver` installed as `OBSERVER` sees the call's rounds,
-    chunks and timings; without one nothing is recorded.
+    chunks and timings; without one nothing is recorded. Counts
+    `poa.stage.threads` (a staging or applying call each, the threads it
+    ran on) and `poa.stage.grow` (once a call, the times its buffers
+    grew) go to the running StageTimer.
 
     Under MANDO_TPU_NO_NATIVE the graphs are Python `PoaGraph`s and a
     round is one `_align_graphs` call (`align_graph_batch`'s body with
     each set's band) and `apply_path` a set (the
     reference's rounds without its library): the same consensi, by the
-    step walk whatever `walk` asks."""
+    step walk whatever `walk` asks, on one thread."""
     params = params or PoaParams()
     device = resolve_device(device)
     if bands is None:
@@ -1140,67 +1374,74 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     if load_native() is None:
         return _poa_rounds_python(seq_sets, params, device, bands, obs)
     graphs = [NativePoaGraph(s[0]) for s in seq_sets]
-    max_reads = max((len(s) for s in seq_sets), default=0)
-    for k in range(1, max_reads):
-        live = [i for i, s in enumerate(seq_sets) if k < len(s)]
-        if not live:
+    with StagePool(threads) as pool:
+        _poa_rounds_native(graphs, seq_sets, params, device, walk, bands,
+                           obs, pool)
+    out = [g.consensus() for g in graphs]
+    for g in graphs:
+        g.close()
+    return out
+
+
+def _poa_rounds_native(graphs, seq_sets, params, device, walk, bands, obs,
+                       pool) -> None:
+    """poa_consensus_batch's rounds on NativePoaGraphs."""
+    # every read of every set in one array: set i's read k is read
+    # first[i] + k, codes[start[r]:start[r] + length[r]]
+    length = np.array([len(r) for s in seq_sets for r in s], np.int64)
+    codes = np.concatenate([np.asarray(r, np.uint8) for s in seq_sets
+                            for r in s] or [np.zeros(0, np.uint8)])
+    start = np.cumsum(length) - length
+    n_reads = np.array([len(s) for s in seq_sets], np.int64)
+    first = np.cumsum(n_reads) - n_reads
+    handles = np.array([g._h for g in graphs], np.uintp)
+    band_of = np.asarray(bands, np.int32)
+    staging = ChunkStaging(device)
+    for k in range(1, int(n_reads.max(initial=0))):
+        live = np.flatnonzero(n_reads > k)
+        if not len(live):
             break
         _count_round(k, len(live))
         if obs is not None:
             obs.rounds += 1
-        queries = [seq_sets[i][k] for i in live]
-        nodes = [graphs[i].n_nodes() for i in live]
-        n_cap = _rank_cap(max(nodes))
+        reads = first[live] + k
+        nodes, maxp = graph_sizes(handles[live])
+        n_cap = _rank_cap(int(nodes.max()))
         round_walk = chunk_walk(walk, n_cap)
-        l_cap = _pow2_at_least(_check_query_lengths(queries))
-        p_cap = _pow2_at_least(
-            max(graphs[i].max_preds() for i in live), floor=4)
+        l_cap = _pow2_at_least(_check_query_lengths(length[reads]))
+        p_cap = _pow2_at_least(int(maxp.max()), floor=4)
         by_width: dict = {}
         for pos in range(len(live)):
-            w = _item_width(nodes[pos], len(queries[pos]), bands[live[pos]],
-                            l_cap, params.adaptive)
+            w = _item_width(int(nodes[pos]), int(length[reads[pos]]),
+                            int(band_of[live[pos]]), l_cap, params.adaptive)
             by_width.setdefault(w, []).append(pos)
         for W in sorted(by_width):
             idxs = by_width[W]
             chunk = _chunk_items(n_cap, W)
             for c0 in range(0, len(idxs), chunk):
                 batch = idxs[c0:c0 + chunk]
-                B = len(batch)
+                sets, at = live[batch], reads[batch]
+                h, q_start = handles[sets], start[at]
                 with span("poa.fill") as fill:
-                    base = np.zeros((B, n_cap), np.int32)
-                    preds = np.full((B, n_cap, p_cap), -1, np.int32)
-                    ends = np.zeros((B, n_cap), np.uint8)
-                    nn = np.zeros(B, np.int32)
-                    qq = np.zeros((B, l_cap), np.int32)
-                    ql = np.zeros(B, np.int32)
-                    band = np.array([bands[live[pos]] for pos in batch],
-                                    np.int32)
-                    for bi, pos in enumerate(batch):
-                        g = graphs[live[pos]]
-                        nn[bi] = g.fill_arrays(base[bi], preds[bi], ends[bi])
-                        q = queries[pos]
-                        qq[bi, :len(q)] = q
-                        ql[bi] = len(q)
+                    arrays = staging.chunk(len(batch), n_cap, p_cap, l_cap)
+                    used = stage_graphs(h, codes, q_start, length[at],
+                                        band_of[sets], arrays, pool)
+                record("poa.stage.threads", items=used)
                 if obs is not None:
                     obs.fill_s += fill.seconds
-                    obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W,
-                              l_cap, params)
-                with span("poa.dispatch", B):
+                    obs.chunk(k, arrays, W, l_cap, params)
+                with span("poa.dispatch", len(batch)):
                     rows, counts = dispatch_chunk(
-                        base, preds, nn, ends, qq, ql, band, W, l_cap,
-                        params, device, obs, round_walk)
+                        *arrays, W, l_cap, params, device, obs, round_walk,
+                        staging)
                 with span("poa.apply") as applied:
-                    for bi, pos in enumerate(batch):
-                        g = graphs[live[pos]]
-                        apply = (g.apply_runs if round_walk == "sweep"
-                                 else g.apply_steps)
-                        apply(queries[pos], rows[bi], int(counts[bi]))
+                    used = apply_graphs(h, codes, q_start, rows, counts,
+                                        round_walk, pool)
+                record("poa.stage.threads", items=used)
                 if obs is not None:
                     obs.apply_s += applied.seconds
-    out = [g.consensus() for g in graphs]
-    for g in graphs:
-        g.close()
-    return out
+    if staging.grows:
+        record("poa.stage.grow", items=staging.grows)
 
 
 def _poa_rounds_python(seq_sets, params, device, bands, obs

@@ -595,6 +595,44 @@ def test_poa_round_counts_each_rounds_problems(tmp_path, monkeypatch,
         (1, 0.0, 3)
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+def test_poa_stage_counts_threads_and_grows(tmp_path, monkeypatch, threads):
+    """Count poa.stage.threads has a call a native staging or applying
+    call, two a chunk, and over them the threads each ran on (1 on the
+    serial path: one thread, or a chunk of one problem); poa.stage.grow
+    one call a poa_consensus_batch call, its buffers' growths as items."""
+    from mandalorion_tpu_torch.poa import kernels as K
+    from mandalorion_tpu_torch.poa.graph import PoaParams
+    if K.load_native() is None:
+        pytest.skip("native library unavailable")
+    obs = K.RunObserver()
+    monkeypatch.setattr(K, "OBSERVER", obs)
+    made = []
+
+    class Seen(K.ChunkStaging):
+        def __init__(self, device):
+            super().__init__(device)
+            made.append(self)
+
+    monkeypatch.setattr(K, "ChunkStaging", Seen)
+    sets = _poa_sets(7, n_sets=4, n_reads=4)
+    sets[1] = sets[1][:2]
+    timer = StageTimer(str(tmp_path / "tmp" / "timing.tsv"), device="cpu")
+    with timer.stage("D_define"):
+        with span("define.resolve", 4):
+            K.poa_consensus_batch(sets, PoaParams(band=16), device="cpu",
+                                  threads=threads)
+    rows = {(st, par, n): (c, s, i) for st, par, n, c, s, i in
+            _span_rows(tmp_path)}
+    used = [1 if b == 1 else min(threads, b) for b, *_r in obs.chunks]
+    assert rows[("D_define", "define.resolve", "poa.stage.threads")] == \
+        (2 * len(obs.chunks), 0.0, 2 * sum(used))
+    [staging] = made
+    assert staging.grows >= 1
+    assert rows[("D_define", "define.resolve", "poa.stage.grow")] == \
+        (1, 0.0, staging.grows)
+
+
 @pytest.fixture(scope="module")
 def event_runs(tmp_path_factory):
     """The port's CLI (default route, -t 2) on a small sample of the
