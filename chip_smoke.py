@@ -2441,8 +2441,8 @@ def config3_phase(tmp, device) -> None:
         f"{dict(sorted(classes.items()))}; the largest (B, n_cap, W) "
         f"{big[:3]}; forward {ms['poa_fwd']:.1f} ms, step walk "
         f"{ms['poa_walk']:.1f} ms by CUDA events summed over the run; host "
-        f"fill_arrays {stats.fill_s:.2f} s, apply_steps {stats.apply_s:.2f} "
-        f"s")
+        f"stage_graphs {stats.fill_s:.2f} s, apply_graphs "
+        f"{stats.apply_s:.2f} s")
     arrays, W, l_cap, params = stats.largest
     f_ms, w_ms, steps = time_poa_kernels(arrays, params, W, l_cap, device)
     log(f"users (a) module D's largest chunk alone ({arrays[0].shape[0]} "
@@ -2748,9 +2748,8 @@ def main(argv) -> None:
                 f"D_define {port_t['D_define']:.2f} s; forward kernel "
                 f"{ms['poa_fwd']:.1f} ms, {walk} walk kernel "
                 f"{ms['poa_sweep' if walk == 'sweep' else 'poa_walk']:.1f} "
-                f"ms by CUDA events summed over the run; host fill_arrays "
-                f"{stats.fill_s * 1e3:.1f} ms, "
-                f"{'apply_runs' if walk == 'sweep' else 'apply_steps'} "
+                f"ms by CUDA events summed over the run; host stage_graphs "
+                f"{stats.fill_s * 1e3:.1f} ms, apply_graphs "
                 f"{stats.apply_s * 1e3:.1f} ms; wall {run_['seconds']:.1f}s")
         by_steps, by_records = runs[0], runs[1]
         launches = dict(by_steps["launches"],

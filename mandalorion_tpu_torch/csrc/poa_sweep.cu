@@ -13,7 +13,7 @@
 //   type 1 DEL:  one (-1, rank) step
 //   type 2 INS:  steps (qi, -1) for qi = qi_hi down to qi_lo, rank field 1
 //
-// which the host's poa_graph_apply_runs_c expands to the step walk's exact
+// which the host's poa_graphs_apply_c expands to the step walk's exact
 // sequence. Entries at and beyond counts[b] are not written.
 //
 // The TPU kernel sweeps every matrix row from the last to the first for every

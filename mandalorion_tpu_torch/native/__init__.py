@@ -201,21 +201,9 @@ def load_native() -> Optional[ctypes.CDLL]:
         lib.poa_graph_free_c.argtypes = [ctypes.c_void_p]
         lib.poa_graph_nodes_c.restype = ctypes.c_int64
         lib.poa_graph_nodes_c.argtypes = [ctypes.c_void_p]
-        lib.poa_graph_arrays_c.restype = ctypes.c_int64
-        lib.poa_graph_arrays_c.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.poa_graph_apply_c.restype = None
-        lib.poa_graph_apply_c.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
         lib.poa_graph_consensus_handle_c.restype = ctypes.c_int64
         lib.poa_graph_consensus_handle_c.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p]
-        lib.poa_graph_apply_runs_c.restype = None
-        lib.poa_graph_apply_runs_c.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
         lib.poa_stage_pool_new_c.restype = ctypes.c_void_p
         lib.poa_stage_pool_new_c.argtypes = [ctypes.c_int32]
         lib.poa_stage_pool_free_c.restype = None

@@ -714,12 +714,11 @@ int64_t poa_graph_nodes_c(void* h) {
 // out_base (n_cap) int32, out_preds (n_cap, p_cap) int32 holding pred
 // rank + 1 (0 = virtual source) and -1 out to p_cap, out_ends (n_cap)
 // uint8, each written on rows 0..n-1 only. Caches the topo order for
-// poa_graph_apply_c. Returns the node count n, or -1 when n_cap/p_cap
-// are too small.
-int64_t poa_graph_arrays_c(void* h, int64_t n_cap, int64_t p_cap,
-                           int32_t* out_base, int32_t* out_preds,
-                           uint8_t* out_ends) {
-    GraphHandle* gh = (GraphHandle*)h;
+// apply_steps and apply_runs. Returns the node count n, or -1 when
+// n_cap/p_cap are too small.
+static int64_t graph_arrays(GraphHandle* gh, int64_t n_cap,
+                            int64_t p_cap, int32_t* out_base,
+                            int32_t* out_preds, uint8_t* out_ends) {
     const Graph& g = gh->g;
     const int64_t n = (int64_t)g.base.size();
     if (n > n_cap || (int64_t)g.maxp > p_cap) return -1;
@@ -743,7 +742,7 @@ int64_t poa_graph_arrays_c(void* h, int64_t n_cap, int64_t p_cap,
 // A device walk's steps back into the graph: buf holds (qi, rank) int32
 // pairs in REVERSE order (the kernel's emission order), first k entries;
 // ranks resolve through the topo order cached by the LAST
-// poa_graph_arrays_c call (the same order the kernel consumed).
+// graph_arrays call (the same order the kernel consumed).
 static void apply_steps(GraphHandle* gh, const uint8_t* q,
                         const int32_t* buf, int64_t k) {
     std::vector<int32_t> steps(2 * k);
@@ -785,18 +784,8 @@ static void apply_runs(GraphHandle* gh, const uint8_t* q,
     apply_path(gh->g, q, steps.data(), (int64_t)steps.size() / 2);
 }
 
-void poa_graph_apply_c(void* h, const uint8_t* q, const int32_t* buf,
-                       int64_t k) {
-    apply_steps((GraphHandle*)h, q, buf, k);
-}
-
 int64_t poa_graph_consensus_handle_c(void* h, uint8_t* out) {
     return consensus(((GraphHandle*)h)->g, out);
-}
-
-void poa_graph_apply_runs_c(void* h, const uint8_t* q,
-                            const int32_t* recs, int64_t k) {
-    apply_runs((GraphHandle*)h, q, recs, k);
 }
 
 // ---------------------------------------------------------------------
@@ -804,7 +793,7 @@ void poa_graph_apply_runs_c(void* h, const uint8_t* q,
 // their paths applied, one native call each, the problems split over a
 // StagePool's threads. Graphs are independent handles, so a thread
 // claims the next problem and touches that graph alone: each result is
-// the per-graph call's, whatever the thread count. A chunk's handles are
+// the serial loop's, whatever the thread count. A chunk's handles are
 // distinct.
 
 // A StagePool of up to n_threads threads a call, the caller's among them
@@ -819,7 +808,7 @@ void poa_stage_pool_free_c(void* pool) { delete (StagePool*)pool; }
 // Stages a chunk of n problems for the device forward. Problem i is graph
 // handles[i] against the query codes reads[q_start[i] .. + q_len[i]) at
 // band half-width band_in[i]; its rows of the chunk's arrays (caps n_cap,
-// p_cap, l_cap) are written as poa_graph_arrays_c writes them: base,
+// p_cap, l_cap) are written as graph_arrays writes them: base,
 // preds and ends on rows 0..nn-1, nn[i] the node count, qq[i, 0..ql-1]
 // the query as int32, ql[i], band[i]. Rows past nn and query columns past
 // ql are not written. Caches each graph's topo order for
@@ -835,8 +824,8 @@ int32_t poa_graphs_stage_c(void* const* handles, int64_t n,
                            int32_t* band, void* pool) {
     std::atomic<bool> bad{false};
     int32_t nthr = for_each_problem(n, pool, [&](int64_t i) {
-        int64_t nodes = poa_graph_arrays_c(
-            handles[i], n_cap, p_cap, base + i * n_cap,
+        int64_t nodes = graph_arrays(
+            (GraphHandle*)handles[i], n_cap, p_cap, base + i * n_cap,
             preds + i * n_cap * p_cap, ends + i * n_cap);
         const int64_t len = q_len[i];
         if (nodes < 0 || len > l_cap) {
@@ -855,8 +844,8 @@ int32_t poa_graphs_stage_c(void* const* handles, int64_t n,
 
 // Threads each problem's query (as poa_graphs_stage_c takes it) along its
 // walk output: problem i's counts[i] entries start at walk + i * stride
-// (int32 words), reverse-order (qi, rank) steps as poa_graph_apply_c
-// takes them, or with runs != 0 records as poa_graph_apply_runs_c does.
+// (int32 words), reverse-order (qi, rank) steps as apply_steps takes
+// them, or with runs != 0 records as apply_runs does.
 // Ranks resolve through the topo order of the last staging call. On
 // `pool`'s threads (NULL: the serial loop); returns the thread count.
 int32_t poa_graphs_apply_c(void* const* handles, int64_t n,

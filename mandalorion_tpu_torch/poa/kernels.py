@@ -4,23 +4,19 @@ Counterpart of mandalorion_tpu/poa/kernels.py and poa/pallas_kernel.py
 for module D's device route. The graph lives on the host (in C++,
 `NativePoaGraph`) as columnar padded arrays in topological-rank space;
 the O(nodes x query) DP of a batch of (graph, query) problems runs on the
-device and only the alignment paths come back:
+device and only the alignment paths come back. One round loop
+(`_rounds`) runs each chunk of problems as
 
-    fill_arrays (C) -> forward (poa_forward) -> walk (poa_walk)
-      -> apply_steps (C)
+    holder.stage -> forward (poa_forward) -> walk (poa_walk) -> holder.apply
 
-or, with walk="sweep" (counterpart of poa/pallas_kernel.py's reverse-sweep
-walk), the path leaves the device run-compressed, one record per diagonal
-step, deleted node or whole insertion run, and C expands it:
-
-    ... -> forward (poa_forward) -> walk (poa_sweep) -> apply_runs (C)
-
-Under MANDO_TPU_NO_NATIVE (no native library) the graphs are Python
-`PoaGraph`s, as in the reference without its library, and every round
-goes through `_align_graphs` (`align_graph_batch`'s body with a band a
-problem; the step walk only):
-
-    graph_arrays (Python) -> forward -> walk (poa_walk) -> apply_path
+on native graphs (`_NativeGraphs`: one C call a chunk each way,
+`stage_graphs` and `apply_graphs`) or, under MANDO_TPU_NO_NATIVE, on
+Python `PoaGraph`s as in the reference without its library
+(`_PythonGraphs`: `graph_arrays`, `apply_path`). With walk="sweep"
+(counterpart of poa/pallas_kernel.py's reverse-sweep walk) the walk is
+`poa_sweep`: the path leaves the device run-compressed, one record per
+diagonal step, deleted node or whole insertion run, and the holder's
+apply expands it.
 
 Two implementations of each device function, side by side:
 
@@ -111,10 +107,9 @@ Mats = Tuple[torch.Tensor, ...]  # hpack, opack, d1p, d2p, offs, endcol
 class RunObserver:
     """What a caller asks `poa_consensus_batch` to record while this
     object is installed as `OBSERVER`: rounds, chunk shapes and host
-    seconds in the C staging calls, the `poa.fill` and `poa.apply` spans'
-    (`apply_s` covers the step and record walks alike; under
-    MANDO_TPU_NO_NATIVE `fill_s` is graph_arrays' and `apply_s`
-    apply_path's), always; with `time_kernels` a CUDA event pair
+    seconds in the graph holder's staging and applying calls, the
+    `poa.fill` and `poa.apply` spans' (native and Python graphs, step and
+    record walks alike), always; with `time_kernels` a CUDA event pair
     around every kernel launch (read after a synchronise by `kernel_ms`,
     the walk under the key of the kernel that ran); copies of the numpy
     arrays of the chunks of `keep_rounds` as `kept` = [(round, W, l_cap,
@@ -950,7 +945,7 @@ def poa_sweep(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
     int32 and counts (B,) int32: recs[b, :counts[b]] are problem b's
     (rec0, rec1) pairs
     from the path's end to its start, packed as REC_DIAG / REC_DEL /
-    REC_INS above, the stream `NativePoaGraph.apply_runs` and
+    REC_INS above, the stream `apply_graphs` (walk="sweep") and
     `expand_walk_records` take. Entries at and beyond counts[b] are
     unspecified. CPU tensors run `poa_sweep_plain`, CUDA tensors the
     csrc/poa_sweep.cu kernel, on the current stream with no
@@ -967,8 +962,9 @@ def poa_sweep(nn: torch.Tensor, ends: torch.Tensor, ql: torch.Tensor,
 
 def expand_walk_records(recs: np.ndarray, k: int) -> np.ndarray:
     """One problem's records (recs[:k], emission order) as `poa_walk`'s
-    buf contract: (steps, 2) int32 (qi, rank) steps in REVERSE order. What
-    the C consumer does inside `apply_runs`, for checks."""
+    buf contract: (steps, 2) int32 (qi, rank) steps in REVERSE order: what
+    `apply_graphs` does in C with walk="sweep", and what the Python
+    graphs apply."""
     rec0 = np.asarray(recs[:k, 0], np.int64)
     rec1 = np.asarray(recs[:k, 1], np.int64)
     rtype = (rec0 >> 16) & 3
@@ -1064,94 +1060,6 @@ def _chunk_items(n_cap: int, W: int) -> int:
     return max(1, CHUNK_BYTES // (BYTES_PER_CELL * (n_cap + 1) * W))
 
 
-def _check_query_lengths(lengths) -> int:
-    longest = int(max(lengths))
-    if longest >= 1 << 16:
-        # the packed traceback matrices hold insertion origins in 16-bit
-        # halves; the host C++ engine has no such limit
-        raise ValueError("device POA path: query >= 65536 bases "
-                         "unsupported (use the host engine)")
-    return longest
-
-
-def align_graph_batch(graphs: Sequence[PoaGraph],
-                      queries: Sequence[np.ndarray],
-                      params: Optional[PoaParams] = None, device="cuda"
-                      ) -> List[List[Tuple[int, Optional[int]]]]:
-    """Align query[i] to the Python-held graph[i] for every i in one
-    (chunked) device dispatch a width class, at band params.band; returns
-    alignment paths for PoaGraph.apply_path."""
-    params = params or PoaParams()
-    device = resolve_device(device)
-    if len(graphs) != len(queries):
-        raise ValueError("one query per graph expected")
-    return _align_graphs(graphs, queries, params, device,
-                         [params.band] * len(graphs), None, 0)
-
-
-def _align_graphs(graphs, queries, params, device, bands, obs, k):
-    """align_graph_batch's body with a band half-width a problem
-    (`bands`); `obs` (a RunObserver or None) records its chunks as round
-    k's. `poa_consensus_batch` runs its rounds through it under
-    MANDO_TPU_NO_NATIVE."""
-    if not graphs:
-        return []
-    orders = [g.topo_order() for g in graphs]
-    n_cap = _rank_cap(max(len(o) for o in orders))
-    l_cap = _pow2_at_least(_check_query_lengths(len(q) for q in queries))
-    p_max = max(1, max((len(g.preds[v]) for g in graphs
-                        for v in range(len(g.base))), default=1))
-    p_cap = _pow2_at_least(p_max, floor=4)
-    by_width: dict = {}
-    for i, (order, q) in enumerate(zip(orders, queries)):
-        w = _item_width(len(order), len(q), bands[i], l_cap,
-                        params.adaptive)
-        by_width.setdefault(w, []).append(i)
-    paths: List[Optional[List[Tuple[int, Optional[int]]]]] = (
-        [None] * len(graphs))
-    for W in sorted(by_width):
-        idxs = by_width[W]
-        chunk = _chunk_items(n_cap, W)
-        for c0 in range(0, len(idxs), chunk):
-            _run_graph_chunk(idxs[c0:c0 + chunk], graphs, queries, orders,
-                             n_cap, l_cap, p_cap, W, params, bands, paths,
-                             device, obs, k)
-    return paths  # type: ignore[return-value]
-
-
-def _run_graph_chunk(batch, graphs, queries, orders, n_cap, l_cap, p_cap,
-                     W, params, bands, paths, device, obs, k) -> None:
-    """Dispatch one chunk of (graph, query) problems; write each problem's
-    alignment path into paths[original_index]."""
-    B = len(batch)
-    with span("poa.fill") as fill:
-        base = np.zeros((B, n_cap), np.int32)
-        preds = np.full((B, n_cap, p_cap), -1, np.int32)
-        ends = np.zeros((B, n_cap), bool)
-        nn = np.zeros(B, np.int32)
-        qq = np.zeros((B, l_cap), np.int32)
-        ql = np.zeros(B, np.int32)
-        for bi, gi in enumerate(batch):
-            b, p, e, _ = graph_arrays(graphs[gi], n_cap, p_cap, orders[gi])
-            base[bi], preds[bi], ends[bi] = b, p, e
-            nn[bi] = len(orders[gi])
-            q = queries[gi]
-            qq[bi, :len(q)] = q
-            ql[bi] = len(q)
-        band = np.array([bands[gi] for gi in batch], np.int32)
-    if obs is not None:
-        obs.fill_s += fill.seconds
-        obs.chunk(k, (base, preds, nn, ends, qq, ql, band), W, l_cap, params)
-    with span("poa.dispatch", B):
-        buf, ks = dispatch_chunk(base, preds, nn, ends, qq, ql, band, W,
-                                 l_cap, params, device, obs)
-        for bi, gi in enumerate(batch):
-            order = orders[gi]
-            steps = buf[bi, :ks[bi]][::-1]
-            paths[gi] = [(int(qi), order[rank] if rank >= 0 else None)
-                         for qi, rank in steps]
-
-
 class NativePoaGraph:
     """A POA graph held in C++ between device rounds (native/poa.cpp
     GraphHandle): the consensus path's host staging (topo order,
@@ -1176,37 +1084,6 @@ class NativePoaGraph:
 
     def n_nodes(self) -> int:
         return int(self._lib.poa_graph_nodes_c(self._h))
-
-    def fill_arrays(self, base_row: np.ndarray, preds_row: np.ndarray,
-                    ends_row: np.ndarray) -> int:
-        """Write this graph's rank-space arrays into the given batch-row
-        slices, rows 0..n-1 (preds with its -1 padding); caches the topo
-        order for apply_steps. Returns the node count n."""
-        n = self._lib.poa_graph_arrays_c(
-            self._h, base_row.shape[0], preds_row.shape[1],
-            base_row.ctypes.data, preds_row.ctypes.data,
-            ends_row.ctypes.data)
-        if n < 0:
-            raise ValueError("poa_graph_arrays_c: caps too small")
-        return int(n)
-
-    def apply_steps(self, q: np.ndarray, buf_rows: np.ndarray,
-                    k: int) -> None:
-        """Thread query q along the device walk's reverse-order (qi,
-        rank) steps (ranks resolve via the last fill_arrays order)."""
-        qa = np.ascontiguousarray(q, np.uint8)
-        b = np.ascontiguousarray(buf_rows[:k], np.int32)
-        self._lib.poa_graph_apply_c(self._h, qa.ctypes.data,
-                                    b.ctypes.data, int(k))
-
-    def apply_runs(self, q: np.ndarray, recs: np.ndarray, k: int) -> None:
-        """Thread query q along `poa_sweep`'s run-compressed records
-        (recs[:k] of one problem, emission order), which C expands to the
-        step walk's exact step sequence."""
-        qa = np.ascontiguousarray(q, np.uint8)
-        r = np.ascontiguousarray(recs[:k], np.int32)
-        self._lib.poa_graph_apply_runs_c(self._h, qa.ctypes.data,
-                                         r.ctypes.data, int(k))
 
     def consensus(self) -> np.ndarray:
         out = np.empty(self.n_nodes() + 1, np.uint8)
@@ -1267,8 +1144,9 @@ def stage_graphs(handles: np.ndarray, codes: np.ndarray,
     NativePoaGraph of handle handles[i] (distinct) against the query
     codes[q_start[i]:q_start[i] + q_len[i]] at band half-width bands[i].
     Writes into `arrays` (base, preds, nn, ends, qq, ql, band, as
-    ChunkStaging.chunk gives them) what fill_arrays writes of each graph,
-    its rows 0..nn-1, with nn, qq[i, :ql], ql and band, and nothing else;
+    ChunkStaging.chunk gives them) each graph's rank-space arrays as
+    `graph_arrays` makes them of its PoaGraph twin (same topo order),
+    rows 0..nn-1, with nn, qq[i, :ql], ql and band, and nothing else;
     caches each graph's topo order for `apply_graphs`. Runs on `pool`'s
     threads (None: the serial loop); returns how many it ran on."""
     lib = require_native("NativePoaGraph")
@@ -1299,9 +1177,9 @@ def apply_graphs(handles: np.ndarray, codes: np.ndarray,
                  walk: str = "steps", pool: Optional[StagePool] = None) -> int:
     """A chunk's paths applied in one native call: each problem's query
     (as `stage_graphs` took it) threaded along rows[i, :counts[i]], the
-    step walk's reverse-order steps (`apply_steps`) or with walk="sweep"
-    the record walk's records (`apply_runs`), ranks resolved through the
-    last staging's topo order. On `pool`'s threads (None: the serial
+    step walk's reverse-order steps or with walk="sweep" the record
+    walk's records (`expand_walk_records` in C), ranks resolved through
+    the last staging's topo order. On `pool`'s threads (None: the serial
     loop); returns how many it ran on."""
     if walk not in WALKS:
         raise ValueError(f"unknown walk {walk!r}: one of {WALKS}")
@@ -1318,14 +1196,183 @@ def apply_graphs(handles: np.ndarray, codes: np.ndarray,
         1 if walk == "sweep" else 0, pool._h if pool is not None else None))
 
 
-def _count_round(k: int, problems: int) -> None:
-    """Counts round k's problems: `poa.round` every round, and
-    `poa.round.first` the first round of a call, the widest (a graph
-    stays live while it has reads left), which tells whether a round
-    outnumbers the card's SMs."""
-    record("poa.round", items=problems)
-    if k == 1:
-        record("poa.round.first", items=problems)
+
+
+class _NativeGraphs:
+    """The round loop's graphs held in C++ (NativePoaGraph): a chunk's
+    staging and its paths applied are one native call each
+    (`stage_graphs`, `apply_graphs`) on the threads of a StagePool that
+    `close` joins with the handles it frees."""
+
+    def __init__(self, seq_sets: Sequence[List[np.ndarray]], threads: int):
+        self.graphs = [NativePoaGraph(s[0]) for s in seq_sets]
+        self.handles = np.array([g._h for g in self.graphs], np.uintp)
+        self.pool = StagePool(threads)
+
+    def sizes(self, sets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        return graph_sizes(self.handles[sets])
+
+    def stage(self, sets, codes, q_start, q_len, bands, arrays) -> int:
+        return stage_graphs(self.handles[sets], codes, q_start, q_len,
+                            bands, arrays, self.pool)
+
+    def apply(self, sets, codes, q_start, rows, counts, walk: str) -> int:
+        return apply_graphs(self.handles[sets], codes, q_start, rows,
+                            counts, walk, self.pool)
+
+    def consensus(self) -> List[np.ndarray]:
+        return [g.consensus() for g in self.graphs]
+
+    def close(self) -> None:
+        self.pool.close()
+        for g in self.graphs:
+            g.close()
+
+
+class _PythonGraphs:
+    """The round loop's graphs as Python PoaGraphs (no native library):
+    a graph is staged by `graph_arrays`, which keeps its topo order with
+    the query for its apply, and a path applied by `PoaGraph.apply_path`,
+    one thread a call. With keep_paths, a chunk's paths go to `paths`
+    (one a graph) and no graph changes."""
+
+    def __init__(self, graphs: List[PoaGraph], keep_paths: bool = False):
+        self.graphs = graphs
+        self.orders: list = [None] * len(graphs)
+        self.queries: list = [None] * len(graphs)
+        self.paths = [None] * len(graphs) if keep_paths else None
+
+    def sizes(self, sets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        graphs = [self.graphs[i] for i in sets]
+        return (np.array([len(g.base) for g in graphs], np.int64),
+                np.array([max([1, *map(len, g.preds)]) for g in graphs],
+                         np.int64))
+
+    def stage(self, sets, codes, q_start, q_len, bands, arrays) -> int:
+        base, preds, nn, ends, qq, ql, band = arrays
+        n_cap, p_cap = preds.shape[1:]
+        for b, i in enumerate(sets):
+            base[b], preds[b], ends[b], self.orders[i] = graph_arrays(
+                self.graphs[i], n_cap, p_cap)
+            nn[b] = len(self.orders[i])
+            q = self.queries[i] = codes[q_start[b]:q_start[b] + q_len[b]]
+            qq[b, :len(q)] = q
+        ql[:], band[:] = q_len, bands
+        return 1
+
+    def apply(self, sets, codes, q_start, rows, counts, walk: str) -> int:
+        for b, i in enumerate(sets):
+            k = int(counts[b])
+            steps = (expand_walk_records(rows[b], k) if walk == "sweep"
+                     else rows[b, :k])
+            order = self.orders[i]
+            path = [(int(qi), order[rank] if rank >= 0 else None)
+                    for qi, rank in steps[::-1]]
+            if self.paths is None:
+                self.graphs[i].apply_path(self.queries[i], path)
+            else:
+                self.paths[i] = path
+        return 1
+
+    def consensus(self) -> List[np.ndarray]:
+        return [g.consensus() for g in self.graphs]
+
+    def close(self) -> None:
+        """Nothing outside Python to free."""
+
+
+def _rounds(holder, seq_sets: Sequence[List[np.ndarray]],
+            params: PoaParams, device: torch.device, walk: str,
+            bands: Sequence[int], obs: Optional[RunObserver]) -> None:
+    """The rounds over `holder`'s graphs (`_NativeGraphs` or
+    `_PythonGraphs`; graph i holds seq_sets[i][0]): round k threads read
+    k of every set that has one, a chunk at a time, each chunk staged by
+    the holder into the call's ChunkStaging, dispatched, and its walk
+    outputs applied by the holder."""
+    # every read of every set in one array: set i's read k is read
+    # first[i] + k, codes[start[r]:start[r] + length[r]]
+    length = np.array([len(r) for s in seq_sets for r in s], np.int64)
+    codes = np.concatenate([np.asarray(r, np.uint8) for s in seq_sets
+                            for r in s] or [np.zeros(0, np.uint8)])
+    start = np.cumsum(length) - length
+    n_reads = np.array([len(s) for s in seq_sets], np.int64)
+    first = np.cumsum(n_reads) - n_reads
+    band_of = np.asarray(bands, np.int32)
+    staging = ChunkStaging(device)
+    for k in range(1, int(n_reads.max(initial=0))):
+        live = np.flatnonzero(n_reads > k)
+        if not len(live):
+            break
+        # counts poa.round every round and poa.round.first the first, the
+        # widest (a graph stays live while it has reads left), which
+        # tells whether a round outnumbers the card's SMs
+        record("poa.round", items=len(live))
+        if k == 1:
+            record("poa.round.first", items=len(live))
+        if obs is not None:
+            obs.rounds += 1
+        reads = first[live] + k
+        nodes, maxp = holder.sizes(live)
+        n_cap = _rank_cap(int(nodes.max()))
+        round_walk = chunk_walk(walk, n_cap)
+        if length[reads].max() >= 1 << 16:
+            # the packed traceback matrices hold insertion origins in
+            # 16-bit halves; the host C++ engine has no such limit
+            raise ValueError("device POA path: query >= 65536 bases "
+                             "unsupported (use the host engine)")
+        l_cap = _pow2_at_least(int(length[reads].max()))
+        p_cap = _pow2_at_least(int(maxp.max()), floor=4)
+        by_width: dict = {}
+        for pos in range(len(live)):
+            w = _item_width(int(nodes[pos]), int(length[reads[pos]]),
+                            int(band_of[live[pos]]), l_cap, params.adaptive)
+            by_width.setdefault(w, []).append(pos)
+        for W in sorted(by_width):
+            idxs = by_width[W]
+            chunk = _chunk_items(n_cap, W)
+            for c0 in range(0, len(idxs), chunk):
+                batch = idxs[c0:c0 + chunk]
+                sets, at = live[batch], reads[batch]
+                q_start = start[at]
+                with span("poa.fill") as fill:
+                    arrays = staging.chunk(len(batch), n_cap, p_cap, l_cap)
+                    used = holder.stage(sets, codes, q_start, length[at],
+                                        band_of[sets], arrays)
+                record("poa.stage.threads", items=used)
+                if obs is not None:
+                    obs.fill_s += fill.seconds
+                    obs.chunk(k, arrays, W, l_cap, params)
+                with span("poa.dispatch", len(batch)):
+                    rows, counts = dispatch_chunk(
+                        *arrays, W, l_cap, params, device, obs, round_walk,
+                        staging)
+                with span("poa.apply") as applied:
+                    used = holder.apply(sets, codes, q_start, rows, counts,
+                                        round_walk)
+                record("poa.stage.threads", items=used)
+                if obs is not None:
+                    obs.apply_s += applied.seconds
+    if staging.grows:
+        record("poa.stage.grow", items=staging.grows)
+
+
+def align_graph_batch(graphs: Sequence[PoaGraph],
+                      queries: Sequence[np.ndarray],
+                      params: Optional[PoaParams] = None, device="cuda"
+                      ) -> List[List[Tuple[int, Optional[int]]]]:
+    """Align query[i] to the Python-held graph[i] for every i in one
+    (chunked) device dispatch a width class, at band params.band: one
+    round of the round loop, whose paths come back for
+    PoaGraph.apply_path and change no graph."""
+    params = params or PoaParams()
+    device = resolve_device(device)
+    if len(graphs) != len(queries):
+        raise ValueError("one query per graph expected")
+    holder = _PythonGraphs(list(graphs), keep_paths=True)
+    # a set's read 0 is the one its graph was made of: an empty stand-in
+    _rounds(holder, [(q[:0], q) for q in queries], params, device, "steps",
+            [params.band] * len(graphs), None)
+    return holder.paths
 
 
 def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
@@ -1344,8 +1391,8 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     of the call's StagePool, into host buffers the call reuses from chunk
     to chunk (ChunkStaging: pinned on a CUDA device). With walk="sweep"
     every chunk that `chunk_walk` lets through leaves the device as
-    run-compressed records (`poa_sweep`, `apply_runs`); the consensi are
-    the same either way, and for every `threads`.
+    run-compressed records (`poa_sweep`); the consensi are the same
+    either way, and for every `threads`.
 
     `bands` gives each sequence set its own band half-width (default:
     params.band for all). The band is a per-problem input of the forward,
@@ -1359,109 +1406,22 @@ def poa_consensus_batch(seq_sets: Sequence[List[np.ndarray]],
     ran on) and `poa.stage.grow` (once a call, the times its buffers
     grew) go to the running StageTimer.
 
-    Under MANDO_TPU_NO_NATIVE the graphs are Python `PoaGraph`s and a
-    round is one `_align_graphs` call (`align_graph_batch`'s body with
-    each set's band) and `apply_path` a set (the
-    reference's rounds without its library): the same consensi, by the
-    step walk whatever `walk` asks, on one thread."""
+    Under MANDO_TPU_NO_NATIVE the graphs are Python `PoaGraph`s (the
+    reference's rounds without its library) in the same round loop:
+    `graph_arrays` stages a graph and `apply_path` applies its path, on
+    one thread, by the walk `walk` asks; the same consensi."""
     params = params or PoaParams()
     device = resolve_device(device)
     if bands is None:
         bands = [params.band] * len(seq_sets)
     if len(bands) != len(seq_sets):
         raise ValueError("one band per sequence set expected")
-    obs = OBSERVER
     if load_native() is None:
-        return _poa_rounds_python(seq_sets, params, device, bands, obs)
-    graphs = [NativePoaGraph(s[0]) for s in seq_sets]
-    with StagePool(threads) as pool:
-        _poa_rounds_native(graphs, seq_sets, params, device, walk, bands,
-                           obs, pool)
-    out = [g.consensus() for g in graphs]
-    for g in graphs:
-        g.close()
-    return out
-
-
-def _poa_rounds_native(graphs, seq_sets, params, device, walk, bands, obs,
-                       pool) -> None:
-    """poa_consensus_batch's rounds on NativePoaGraphs."""
-    # every read of every set in one array: set i's read k is read
-    # first[i] + k, codes[start[r]:start[r] + length[r]]
-    length = np.array([len(r) for s in seq_sets for r in s], np.int64)
-    codes = np.concatenate([np.asarray(r, np.uint8) for s in seq_sets
-                            for r in s] or [np.zeros(0, np.uint8)])
-    start = np.cumsum(length) - length
-    n_reads = np.array([len(s) for s in seq_sets], np.int64)
-    first = np.cumsum(n_reads) - n_reads
-    handles = np.array([g._h for g in graphs], np.uintp)
-    band_of = np.asarray(bands, np.int32)
-    staging = ChunkStaging(device)
-    for k in range(1, int(n_reads.max(initial=0))):
-        live = np.flatnonzero(n_reads > k)
-        if not len(live):
-            break
-        _count_round(k, len(live))
-        if obs is not None:
-            obs.rounds += 1
-        reads = first[live] + k
-        nodes, maxp = graph_sizes(handles[live])
-        n_cap = _rank_cap(int(nodes.max()))
-        round_walk = chunk_walk(walk, n_cap)
-        l_cap = _pow2_at_least(_check_query_lengths(length[reads]))
-        p_cap = _pow2_at_least(int(maxp.max()), floor=4)
-        by_width: dict = {}
-        for pos in range(len(live)):
-            w = _item_width(int(nodes[pos]), int(length[reads[pos]]),
-                            int(band_of[live[pos]]), l_cap, params.adaptive)
-            by_width.setdefault(w, []).append(pos)
-        for W in sorted(by_width):
-            idxs = by_width[W]
-            chunk = _chunk_items(n_cap, W)
-            for c0 in range(0, len(idxs), chunk):
-                batch = idxs[c0:c0 + chunk]
-                sets, at = live[batch], reads[batch]
-                h, q_start = handles[sets], start[at]
-                with span("poa.fill") as fill:
-                    arrays = staging.chunk(len(batch), n_cap, p_cap, l_cap)
-                    used = stage_graphs(h, codes, q_start, length[at],
-                                        band_of[sets], arrays, pool)
-                record("poa.stage.threads", items=used)
-                if obs is not None:
-                    obs.fill_s += fill.seconds
-                    obs.chunk(k, arrays, W, l_cap, params)
-                with span("poa.dispatch", len(batch)):
-                    rows, counts = dispatch_chunk(
-                        *arrays, W, l_cap, params, device, obs, round_walk,
-                        staging)
-                with span("poa.apply") as applied:
-                    used = apply_graphs(h, codes, q_start, rows, counts,
-                                        round_walk, pool)
-                record("poa.stage.threads", items=used)
-                if obs is not None:
-                    obs.apply_s += applied.seconds
-    if staging.grows:
-        record("poa.stage.grow", items=staging.grows)
-
-
-def _poa_rounds_python(seq_sets, params, device, bands, obs
-                       ) -> List[np.ndarray]:
-    """poa_consensus_batch's rounds on Python-held PoaGraphs."""
-    graphs = [PoaGraph(s[0]) for s in seq_sets]
-    max_reads = max((len(s) for s in seq_sets), default=0)
-    for k in range(1, max_reads):
-        live = [i for i, s in enumerate(seq_sets) if k < len(s)]
-        if not live:
-            break
-        _count_round(k, len(live))
-        if obs is not None:
-            obs.rounds += 1
-        paths = _align_graphs([graphs[i] for i in live],
-                              [seq_sets[i][k] for i in live], params, device,
-                              [bands[i] for i in live], obs, k)
-        with span("poa.apply") as applied:
-            for i, path in zip(live, paths):
-                graphs[i].apply_path(seq_sets[i][k], path)
-        if obs is not None:
-            obs.apply_s += applied.seconds
-    return [g.consensus() for g in graphs]
+        holder = _PythonGraphs([PoaGraph(s[0]) for s in seq_sets])
+    else:
+        holder = _NativeGraphs(seq_sets, threads)
+    try:
+        _rounds(holder, seq_sets, params, device, walk, bands, OBSERVER)
+        return holder.consensus()
+    finally:
+        holder.close()

@@ -1,12 +1,12 @@
 """Module D's round loop staged a chunk at a time: `stage_graphs` and
-`apply_graphs` (one native call each, on threads) against the per-graph
-`fill_arrays` / `apply_steps` / `apply_runs` calls, and
+`apply_graphs` (one native call each, on threads) against each graph's
+Python `PoaGraph` twin (`graph_arrays`, `PoaGraph.apply_path`),
 `poa_consensus_batch` on buffers that hold stale values from round to
-round.
+round, and the loop on native and on Python graphs side by side.
 
-The graphs are NativePoaGraphs grown along the native engine's paths.
-This file imports no jax: its `cuda` cases run on a card with
---noconftest.
+The graphs are NativePoaGraphs grown along the native engine's paths,
+each beside its twin. This file imports no jax: its `cuda` cases run on
+a card with --noconftest.
 """
 
 import importlib.util
@@ -67,26 +67,33 @@ def _sets(case, seed=0):
 
 def _grown(reads):
     """NativePoaGraph of reads[0] with reads[1:] threaded in along the
-    native engine's paths (a Python twin resolves ranks)."""
+    native engine's paths by `stage_graphs` and `apply_graphs` on its one
+    handle, and its PoaGraph twin grown along the same paths (the twin's
+    topo order resolves the ranks)."""
     g, twin = K.NativePoaGraph(reads[0]), PoaGraph(reads[0])
+    h = np.array([g._h], np.uintp)
     for q in reads[1:]:
-        (n,), (p,) = K.graph_sizes(np.array([g._h], np.uintp))
-        g.fill_arrays(np.zeros(n, np.int32), np.full((n, p), -1, np.int32),
-                      np.zeros(n, np.uint8))
+        (n,), (p,) = K.graph_sizes(h)
+        q_start, q_len = np.zeros(1, np.int64), np.array([len(q)])
+        K.stage_graphs(h, q, q_start, q_len, np.zeros(1, np.int32),
+                       _poisoned_chunk(1, (n, p, len(q))))
         rank = {v: r for r, v in enumerate(twin.topo_order())}
         path = native_poa_align(twin, q, PARAMS)
         steps = np.array([(qi, -1 if v is None else rank[v])
-                          for qi, v in path][::-1], np.int32).reshape(-1, 2)
-        g.apply_steps(q, steps, len(steps))
+                          for qi, v in path][::-1], np.int32)
+        K.apply_graphs(h, q, q_start, steps.reshape(1, -1, 2),
+                       np.array([len(steps)], np.int32))
         twin.apply_path(q, path)
     assert g.consensus().tolist() == twin.consensus().tolist()
-    return g
+    return g, twin
 
 
 def _problems(sets):
-    """(graphs, handles, codes, q_start, q_len, bands, caps) of a case:
-    graph i is sets[i][:-1] grown, its query sets[i][-1]."""
-    graphs = [_grown(s[:-1]) for s in sets]
+    """(graphs, twins, handles, codes, q_start, q_len, bands, caps) of a
+    case: graph i is sets[i][:-1] grown, beside its PoaGraph twin, its
+    query sets[i][-1]."""
+    grown = [_grown(s[:-1]) for s in sets]
+    graphs, twins = [g for g, _ in grown], [t for _, t in grown]
     queries = [s[-1] for s in sets]
     q_len = np.array([len(q) for q in queries], np.int64)
     codes = np.concatenate(queries or [np.zeros(0, np.uint8)])
@@ -97,19 +104,22 @@ def _problems(sets):
     caps = (K._rank_cap(int(nodes.max(initial=1))),
             K._pow2_at_least(int(maxp.max(initial=1)), floor=4),
             K._pow2_at_least(int(q_len.max(initial=1))))
-    return graphs, handles, codes, q_start, q_len, bands, caps
+    return graphs, twins, handles, codes, q_start, q_len, bands, caps
 
 
-def _per_graph_fill(graphs, queries, bands, caps):
-    """The loop the batched call replaces: fill_arrays a graph."""
+def _twin_fill(twins, queries, bands, caps):
+    """What the staging writes, made of the PoaGraph twins by
+    `graph_arrays` (padding past nn and ql as graph_arrays pads)."""
     n_cap, p_cap, l_cap = caps
-    B = len(graphs)
+    B = len(twins)
     base = np.zeros((B, n_cap), np.int32)
     preds = np.full((B, n_cap, p_cap), -1, np.int32)
     ends = np.zeros((B, n_cap), np.uint8)
     nn, qq = np.zeros(B, np.int32), np.zeros((B, l_cap), np.int32)
-    for i, g in enumerate(graphs):
-        nn[i] = g.fill_arrays(base[i], preds[i], ends[i])
+    for i, twin in enumerate(twins):
+        base[i], preds[i], ends[i], order = K.graph_arrays(twin, n_cap,
+                                                           p_cap)
+        nn[i] = len(order)
         qq[i, :len(queries[i])] = queries[i]
     ql = np.array([len(q) for q in queries], np.int32)
     return base, preds, nn, ends, qq, ql, np.asarray(bands, np.int32)
@@ -126,12 +136,13 @@ def _poisoned_chunk(B, caps):
 @pytest.mark.parametrize("case", ["none", "one", "sizes", "long_queries"])
 def test_batched_fill_writes_what_fill_arrays_writes(case, threads):
     """Rows 0..nn-1 of base, preds and ends, nn, qq[:ql], ql and band as
-    the per-graph loop writes them; nothing past nn or ql is written; the
-    call ran on min(threads, problems) threads."""
+    `graph_arrays` makes them of the PoaGraph twins; nothing past nn or
+    ql is written; the call ran on min(threads, problems) threads."""
     sets = _sets(case)
-    graphs, handles, codes, q_start, q_len, bands, caps = _problems(sets)
+    _graphs, twins, handles, codes, q_start, q_len, bands, caps = \
+        _problems(sets)
     queries = [s[-1] for s in sets]
-    want = _per_graph_fill(graphs, queries, bands, caps)
+    want = _twin_fill(twins, queries, bands, caps)
     got = _poisoned_chunk(len(sets), caps)
     with K.StagePool(threads) as pool:
         used = K.stage_graphs(handles, codes, q_start, q_len, bands, got,
@@ -156,7 +167,8 @@ def test_batched_fill_writes_what_fill_arrays_writes(case, threads):
 
 def test_batched_fill_refuses_caps_too_small():
     sets = _sets("sizes")
-    graphs, handles, codes, q_start, q_len, bands, caps = _problems(sets)
+    _graphs, _twins, handles, codes, q_start, q_len, bands, caps = \
+        _problems(sets)
     n_cap, p_cap, l_cap = caps
     for small in ((n_cap // 4, p_cap, l_cap), (n_cap, p_cap, 64)):
         with K.StagePool(3) as pool, pytest.raises(ValueError,
@@ -174,7 +186,8 @@ def test_stage_pool_threads_live_only_while_it_is_open(monkeypatch):
     problems) a call with the caller's, and joins them when closed; the
     round loop closes its pool before it returns."""
     sets = _sets("sizes")
-    graphs, handles, codes, q_start, q_len, bands, caps = _problems(sets)
+    _graphs, _twins, handles, codes, q_start, q_len, bands, caps = \
+        _problems(sets)
     before = _threads_alive()
     with K.StagePool(4) as pool:
         for n, want in ((2, 2), (5, 4), (1, 1), (3, 3)):
@@ -205,7 +218,8 @@ def walked():
     out = {}
     for case in ("sizes", "long_queries"):
         sets = _sets(case)
-        graphs, handles, codes, q_start, q_len, bands, caps = _problems(sets)
+        _graphs, _twins, handles, codes, q_start, q_len, bands, caps = \
+            _problems(sets)
         arrays = _poisoned_chunk(len(sets), caps)
         K.stage_graphs(handles, codes, q_start, q_len, bands, arrays)
         W = max(K._item_width(int(n), int(m), int(b), caps[2],
@@ -223,17 +237,20 @@ def walked():
 @pytest.mark.parametrize("case", ["sizes", "long_queries"])
 def test_batched_apply_gives_the_per_graph_graphs(walked, case, walk,
                                                   threads):
-    """The same walk outputs applied by one call on threads and by
-    apply_steps / apply_runs a graph: the same graphs (arrays and
-    consensus)."""
+    """The same walk outputs applied by one call on threads and, by
+    PoaGraph.apply_path of the expanded walk, to the PoaGraph twins: the
+    same graphs (arrays and consensus)."""
     rows, counts = walked[case, walk]
     sets = _sets(case)
     queries = [s[-1] for s in sets]
-    graphs, handles, codes, q_start, q_len, bands, caps = _problems(sets)
-    mine, *_rest = _problems(sets)
-    _per_graph_fill(mine, queries, bands, caps)
-    for g, q, r, k in zip(mine, queries, rows, counts):
-        (g.apply_runs if walk == "sweep" else g.apply_steps)(q, r, int(k))
+    graphs, twins, handles, codes, q_start, q_len, bands, caps = \
+        _problems(sets)
+    for twin, q, r, k in zip(twins, queries, rows, counts):
+        steps = (K.expand_walk_records(r, int(k)) if walk == "sweep"
+                 else r[:k])
+        order = twin.topo_order()
+        twin.apply_path(q, [(int(qi), order[rank] if rank >= 0 else None)
+                            for qi, rank in steps[::-1]])
     with K.StagePool(threads) as pool:
         K.stage_graphs(handles, codes, q_start, q_len, bands,
                        _poisoned_chunk(len(sets), caps), pool)
@@ -241,13 +258,17 @@ def test_batched_apply_gives_the_per_graph_graphs(walked, case, walk,
                               pool)
     assert used == min(threads, len(sets))
     assert [g.consensus().tolist() for g in graphs] == \
-        [g.consensus().tolist() for g in mine]
+        [g.consensus().tolist() for g in twins]
     nodes, maxp = K.graph_sizes(handles)
     grown = (K._rank_cap(int(nodes.max())),
              K._pow2_at_least(int(maxp.max()), floor=4), caps[2])
-    a = _per_graph_fill(graphs, queries, bands, grown)
-    b = _per_graph_fill(mine, queries, bands, grown)
-    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    got = _poisoned_chunk(len(sets), grown)
+    K.stage_graphs(handles, codes, q_start, q_len, bands, got)
+    want = _twin_fill(twins, queries, bands, grown)
+    assert got[2].tolist() == want[2].tolist()
+    for i, n in enumerate(got[2]):
+        for a in (0, 1, 3):  # base, preds, ends
+            assert np.array_equal(got[a][i, :n], want[a][i, :n])
 
 
 def _round_sets(seed=3):
@@ -331,6 +352,33 @@ def test_poisoned_buffers_give_the_fresh_consensi(monkeypatch, fresh,
     assert any(b2 < b1 and n2 > n1 for (b1, n1), (b2, n2)
                in zip(shapes, shapes[1:])), shapes
     assert staging.grows >= 2
+
+
+@pytest.mark.parametrize("walk", K.WALKS)
+@pytest.mark.parametrize("shape", ["rounds", "widths"])
+def test_native_and_python_graphs_run_the_same_rounds(monkeypatch, shape,
+                                                      walk):
+    """poa_consensus_batch on NativePoaGraphs and on Python PoaGraphs (no
+    native library) through the one round loop: the same consensi, and a
+    RunObserver sees the same rounds and chunks. `rounds` shrink while
+    the graphs grow; `widths` puts graphs of 30 to 700 nodes at two bands
+    into two width classes a round."""
+    if shape == "rounds":
+        sets, bands = _round_sets(), None
+    else:
+        sets = [s[:-1] for s in _sets("sizes")]
+        bands = [16, 200, 16, 200, 16]
+    runs = []
+    for native in (True, False):
+        if not native:
+            monkeypatch.setattr(K, "load_native", lambda: None)
+        obs = K.RunObserver()
+        monkeypatch.setattr(K, "OBSERVER", obs)
+        got = K.poa_consensus_batch(sets, PARAMS, "cpu", walk, bands)
+        runs.append(([g.tolist() for g in got], obs.rounds, obs.chunks))
+    assert runs[0] == runs[1]
+    widths = {W for _b, _n, W, _r, _k in runs[0][2]}
+    assert len(widths) == (1 if shape == "rounds" else 2), widths
 
 
 def _bench():
