@@ -87,6 +87,9 @@ CHUNK_BYTES = 8 << 30
 BYTES_PER_CELL = 28
 
 POA_FWD_LAUNCHES = LaunchCounter("poa_fwd")
+# csrc/poa_fwd.cu's kWarps: the warps of a forward launch's block, which
+# holds one problem (counted as `poa.fwd.warps`)
+FWD_WARPS = 4
 POA_WALK_LAUNCHES = LaunchCounter("poa_walk")
 POA_SWEEP_LAUNCHES = LaunchCounter("poa_sweep")
 
@@ -583,6 +586,7 @@ def _poa_forward_cuda(base, preds, nn, qq, ql, band, params: PoaParams,
             params.gap_extend, params.gap_open2, params.gap_extend2,
             1 if params.adaptive else 0, stream)
     _build.check(rc, "mando_poa_fwd")
+    record("poa.fwd.warps", items=FWD_WARPS)
     return (*mats, offs, endcol)
 
 

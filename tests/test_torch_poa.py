@@ -328,6 +328,20 @@ def test_forward_rejects_bad_arguments():
         K.poa_forward(base, preds, nn + base.shape[1], qq, ql, params, W)
 
 
+def test_forward_warps_are_the_kernels():
+    """The warp count the launcher records (`poa.fwd.warps`) is the one
+    csrc/poa_fwd.cu is built with, and splits a tile of 256 columns evenly
+    over its lanes."""
+    import os
+    import re
+    from mandalorion_tpu_torch import _build
+    with open(os.path.join(_build.CSRC, "poa_fwd.cu")) as fh:
+        src = fh.read()
+    warps = re.search(r"constexpr int kWarps = (\d+);", src)
+    assert int(warps.group(1)) == K.FWD_WARPS
+    assert 256 % (32 * K.FWD_WARPS) == 0
+
+
 # --------------------------------------------------------------- walk
 
 @pytest.mark.parametrize("seed,make,adaptive", [(42, _rand_sets, True),
@@ -583,50 +597,72 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _assert_kernels_match_plain(arrays, params, W, l_cap, device):
+# a forward launch of the chunk's few problems, a block and an SM each, or
+# of the chunk repeated past the card's SM count, where several problems'
+# blocks share an SM
+LAUNCHES = ("few", "wide")
+
+
+def _assert_kernels_match_plain(arrays, params, W, l_cap, device,
+                                launch="few"):
     """Forward and walk kernels against their plain versions on the
     card: the matrices' rows 0..nn[b] (`clear_rows_past`), buf[:ks] and
-    ks."""
-    base, preds, nn, ends, qq, ql, band = K.problems_from_numpy(*arrays,
-                                                                device)
+    ks. A "wide" launch holds the chunk's problems repeated until they
+    outnumber the SMs, and each copy is held to the plain version of its
+    problem."""
+    B = len(arrays[2])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    copies = 1 if launch == "few" else sms // B + 1
+    base, preds, nn, ends, qq, ql, band = K.problems_from_numpy(
+        *(np.concatenate([a] * copies) for a in arrays), device)
     before = (K.POA_FWD_LAUNCHES.count, K.POA_WALK_LAUNCHES.count)
     mats = K.poa_forward(base, preds, nn, qq, ql, params, W, band)
     buf, ks = K.poa_walk(nn, ends, ql, mats, l_cap)
     torch.cuda.synchronize()
     assert (K.POA_FWD_LAUNCHES.count, K.POA_WALK_LAUNCHES.count) == \
         (before[0] + 1, before[1] + 1)
-    want = K.poa_forward_plain(base, preds, nn, qq, ql, params, W, band)
+    one = (base[:B], preds[:B], nn[:B], qq[:B], ql[:B])
+    want = K.poa_forward_plain(*one, params, W, band[:B])
     for g, w in zip(K.clear_rows_past(mats, nn), want):
-        assert torch.equal(g, w)
-    want_buf, want_ks = K.poa_walk_plain(nn, ends, ql, want, l_cap)
-    assert torch.equal(ks, want_ks)
-    for b, k in enumerate(want_ks.tolist()):
-        assert torch.equal(buf[b, :k], want_buf[b, :k])
+        assert torch.equal(g, w.repeat(copies, *[1] * (w.dim() - 1)))
+    want_buf, want_ks = K.poa_walk_plain(nn[:B], ends[:B], ql[:B], want,
+                                         l_cap)
+    assert torch.equal(ks, want_ks.repeat(copies))
+    for b, k in enumerate(want_ks.tolist() * copies):
+        assert torch.equal(buf[b, :k], want_buf[b % B, :k])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
 @pytest.mark.parametrize("adaptive", [True, False])
 @pytest.mark.parametrize("seed,make", [(42, _rand_sets), (5, _indel_sets)])
-def test_cuda_kernels_match_plain(cuda_device, seed, make, adaptive):
+def test_cuda_kernels_match_plain(cuda_device, seed, make, adaptive, launch):
     params = PoaParams(band=20, adaptive=adaptive)
     arrays, W, l_cap = _chunk_arrays(make(seed), params, 2)
-    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_long_back_edge(cuda_device):
+@pytest.mark.parametrize("launch", LAUNCHES)
+def test_cuda_kernels_long_back_edge(cuda_device, launch):
+    """A predecessor over 320 rows back, at W = 1024: four tiles a row."""
     params = PoaParams(band=LONG_BAND, adaptive=True)
     arrays, W, l_cap = _chunk_arrays([_long_insertion_set(21)], params, 3)
-    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+    assert W == 1024
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
 @pytest.mark.parametrize("adaptive", [True, False])
-def test_cuda_kernels_mixed_bands(cuda_device, adaptive):
+def test_cuda_kernels_mixed_bands(cuda_device, adaptive, launch):
     """The mixed-band chunk on the card: kernels == plain, and every
     problem's matrices are those of a launch with its band alone."""
     arrays, W, l_cap, params = _mixed_band_chunk(31, adaptive)
-    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
     base, preds, nn, _e, qq, ql, band = K.problems_from_numpy(*arrays,
                                                               cuda_device)
     mixed = K.clear_rows_past(
@@ -641,12 +677,13 @@ def test_cuda_kernels_mixed_bands(cuda_device, adaptive):
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_long_predecessor_lists(cuda_device):
+@pytest.mark.parametrize("launch", LAUNCHES)
+def test_cuda_kernels_long_predecessor_lists(cuda_device, launch):
     """64-entry predecessor lists (two parts of 32 lanes), 40 of them in
     use, most beyond the shared-memory ring."""
     arrays, W, l_cap = _fan_in_chunk(3)
     _assert_kernels_match_plain(arrays, PoaParams(band=20, adaptive=True),
-                                W, l_cap, cuda_device)
+                                W, l_cap, cuda_device, launch)
 
 
 # an insertion of 40 bases under a band of 60: W stays 256, where the
@@ -656,8 +693,10 @@ RING_BAND = 60
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
 @pytest.mark.parametrize("round_k", [2, 3, 4])
-def test_cuda_forward_ring_hit_and_miss_in_one_problem(cuda_device, round_k):
+def test_cuda_forward_ring_hit_and_miss_in_one_problem(cuda_device, round_k,
+                                                       launch):
     """Predecessors the row before (the shared-memory ring) and more than
     16 rows back (the state scratch) in one problem at W = 256; the walk
     crosses the 40 inserted nodes in one diagonal step (a branch out of
@@ -670,7 +709,131 @@ def test_cuda_forward_ring_hit_and_miss_in_one_problem(cuda_device, round_k):
     rows = np.arange(1, int(nn[0]) + 1)[:, None]
     back = np.where(preds[0, :nn[0]] >= 1, rows - preds[0, :nn[0]], 0)
     assert (back == 1).any() and back.max() > 16
-    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device)
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_cuda_forward_w512_in_tiles(cuda_device, adaptive, launch):
+    """Queries of about 400-450 bases under a band of 140: W = 512, a row
+    in two tiles of 256, the insertion scans carried from one to the
+    next."""
+    params = PoaParams(band=140, adaptive=adaptive)
+    arrays, W, l_cap = _chunk_arrays(
+        _rand_sets(8, n_sets=2, len_lo=380, len_hi=460), params, 2)
+    assert W == 512
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
+def test_cuda_forward_reads_stale_padding_as_plain(cuda_device, launch):
+    """Query columns past ql, and rows past nn, hold whatever a reused
+    staging buffer left there, any int32: the kernel reads the query's as
+    the plain forward does (values that agree with a base code in their
+    low byte, and negative ones, among them) and the rows' not at all."""
+    params = PoaParams(band=20, adaptive=True)
+    arrays, W, l_cap = _chunk_arrays(_rand_sets(42), params, 2)
+    base, preds, nn, ends, qq, ql, band = (a.copy() for a in arrays)
+    rng = np.random.default_rng(7)
+    for b, (n, q) in enumerate(zip(nn.tolist(), ql.tolist())):
+        stale = rng.integers(0, 4, l_cap - q) + 256 * rng.integers(
+            -1000, 1000, l_cap - q)
+        qq[b, q:] = stale
+        base[b, n:] = rng.integers(-1 << 20, 1 << 20, base.shape[1] - n)
+        preds[b, n:] = rng.integers(-1 << 20, 1 << 20, preds[b, n:].shape)
+    assert ((qq >= 256) & (qq % 256 < 4)).any() and (qq < 0).any()
+    _assert_kernels_match_plain((base, preds, nn, ends, qq, ql, band),
+                                params, W, l_cap, cuda_device, launch)
+
+
+# stored columns where one warp's columns end and the next one's begin:
+# a warp takes 64 columns of a tile at 4 warps a problem (32 at the 8 that
+# tools/poa_kernel_phases.py also builds)
+WARP_EDGES = (31, 32, 63, 64, 127, 128, 191, 192)
+
+
+def _chain_problem(graph, query, band):
+    """One hand-made problem: the graph a chain of `graph`'s bases (each
+    rank's one predecessor the rank before), `query` against it, W 256."""
+    n, qlen = len(graph), len(query)
+    n_cap, l_cap = K._rank_cap(n), K._pow2_at_least(qlen)
+    base = np.zeros((1, n_cap), np.int32)
+    preds = np.full((1, n_cap, 4), -1, np.int32)
+    ends = np.zeros((1, n_cap), bool)
+    qq = np.zeros((1, l_cap), np.int32)
+    base[0, :n] = graph
+    preds[0, :n, 0] = np.arange(n)
+    ends[0, n - 1] = True
+    qq[0, :qlen] = query
+    arrays = (base, preds, np.array([n], np.int32), ends, qq,
+              np.array([qlen], np.int32), np.array([band], np.int32))
+    return arrays, 256, l_cap
+
+
+def _first_max_ties():
+    """A chain of 230 A against 10 C then 240 A, gaps free and mismatches
+    0 (match 1): row r holds r at every in-band column from 10 + r on and
+    less before it, so its first maximum, which centres the next row's
+    band of 40, is column 10 + r with ties to its right: the ties sweep
+    across every warp edge."""
+    params = PoaParams(match=1, mismatch=0, gap_open=0, gap_extend=0,
+                       gap_open2=0, gap_extend2=0, band=40, adaptive=True)
+    query = np.r_[np.ones(10, np.int32), np.zeros(240, np.int32)]
+    return _chain_problem(np.zeros(230, np.int32), query, 40) + (params,)
+
+
+def _insertions_from_warp_edges(seed=4):
+    """A chain of 200 random bases against the same bases with 20 others
+    inserted after the 63rd and 20 after the 108th (query column 128):
+    the two insertion runs open at a warp edge and run into the next
+    warps."""
+    rng = np.random.default_rng(seed)
+    graph = rng.integers(0, 4, 200).astype(np.int32)
+    junk = rng.integers(0, 4, (2, 20)).astype(np.int32)
+    query = np.r_[graph[:63], junk[0], graph[63:108], junk[1], graph[108:]]
+    params = PoaParams(band=120, adaptive=True)
+    return _chain_problem(graph, query, 120) + (params,)
+
+
+@pytest.mark.parametrize("make", [_first_max_ties,
+                                  _insertions_from_warp_edges])
+def test_forward_warp_edge_problems_hit_the_edges(make):
+    """The hand-made problems of the warp-edge case do what it needs, by
+    the plain forward: insertions whose origin lies on a warp edge and
+    whose cell lies in a later warp, or first maxima at the lowest of the
+    tied columns (the band's right edge, column 50 + r, reaches the
+    query's end, 250, from row 200 on, where H is r)."""
+    arrays, W, _l, params = make()
+    hpack, opack, _d1, _d2, offs, endcol = _port_mats(arrays, params, W)[0]
+    n = int(arrays[2][0])
+    if make is _first_max_ties:
+        rows = torch.arange(1, n + 1)
+        assert (offs[0] == 0).all()
+        assert torch.equal(endcol[0, 1:n + 1],
+                           torch.where(rows >= 200, rows, NEG).int())
+        return
+    op = hpack[0, 1:n + 1] & 7
+    origin = opack[0, 1:n + 1] & 0xFFFF
+    col = torch.arange(W)[None, :] + offs[0, 1:n + 1, None]
+    from_edge = (op == 1) & torch.isin(origin, torch.tensor(WARP_EDGES)) \
+        & (col // 32 > origin // 32)
+    assert set(origin[from_edge].tolist()) >= {63, 127}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", LAUNCHES)
+@pytest.mark.parametrize("make", [_first_max_ties,
+                                  _insertions_from_warp_edges])
+def test_cuda_forward_warp_edges(cuda_device, make, launch):
+    """First maxima tied across warp edges, and insertions opened at a
+    warp edge, on both launches."""
+    arrays, W, l_cap, params = make()
+    _assert_kernels_match_plain(arrays, params, W, l_cap, cuda_device,
+                                launch)
 
 
 @pytest.mark.cuda
